@@ -1,0 +1,65 @@
+"""Detection kernels (port of ``repro/kernels/detect.py``): NMS.
+
+:func:`nms` is the reference's ``nms`` wrapper: a stable descending-score
+sort, one launch of the sequential keep-mask scan over every image of the
+batch, the ``max_keep`` cap and the scatter back to the caller's order.
+The scan, :func:`nms_keep`, is the hand-written CUDA kernel
+``csrc/nms.cu`` for a tensor on the card, and its plain version
+``kernels.ref.nms_keep`` for a tensor on the CPU. A CUDA tensor never takes
+the plain version: the kernel launches or the call raises.
+
+``pairwise_iou`` (eval matching) belongs to a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+
+def nms_keep(boxes_s: torch.Tensor, valid_s: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """boxes_s (B, N, 4) f32 score-sorted, valid_s (B, N) 0/1 f32 ->
+    keep_s (B, N) f32. Counts its CUDA launches in ``nms_keep.launches``."""
+    if boxes_s.device.type == "cpu":
+        return ref.nms_keep(boxes_s, valid_s, iou_thresh)
+    if boxes_s.device.type != "cuda":
+        raise ValueError(f"nms_keep runs on cuda or cpu tensors, not {boxes_s.device}")
+    if boxes_s.dim() != 3 or boxes_s.shape[2] != 4 or valid_s.shape != boxes_s.shape[:2]:
+        raise ValueError(f"expected boxes (B, N, 4) and valid (B, N), got "
+                         f"{tuple(boxes_s.shape)} and {tuple(valid_s.shape)}")
+    if boxes_s.dtype != torch.float32 or valid_s.dtype != torch.float32:
+        raise TypeError("nms_keep takes float32 boxes and valid mask")
+    if valid_s.device != boxes_s.device:
+        raise ValueError("boxes and valid mask must be on one device")
+    if boxes_s.shape[1] * 24 > 227 * 1024:
+        raise ValueError(f"N={boxes_s.shape[1]} boxes do not fit one block's shared memory")
+    boxes_s, valid_s = boxes_s.contiguous(), valid_s.contiguous()
+    keep = torch.empty_like(valid_s)
+    B, N = valid_s.shape
+    lib = _build.library()
+    with torch.cuda.device(boxes_s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.nms_keep_launch(boxes_s.data_ptr(), valid_s.data_ptr(), keep.data_ptr(),
+                                   B, N, float(iou_thresh), stream)
+    _build.check(lib, code, "nms_keep launch")
+    nms_keep.launches += 1
+    return keep
+
+
+nms_keep.launches = 0
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, *, iou_thresh: float = 0.5,
+        score_thresh: float = 0.0, max_keep: int = 0) -> torch.Tensor:
+    """boxes (B?, N, 4), scores (B?, N) -> keep mask (B?, N) f32, original order.
+
+    Score-sorted sequential NMS with fixed shapes (``detect.nms``): ties in
+    score keep the original order, ``score_thresh`` pre-drops boxes at or
+    below it, and ``max_keep > 0`` masks survivors beyond the top max_keep.
+    """
+    squeeze = boxes.dim() == 2
+    if squeeze:
+        boxes, scores = boxes[None], scores[None]
+    order, boxes_s, valid_s = ref.sort_by_score(boxes, scores, score_thresh)
+    keep = ref.finish(order, nms_keep(boxes_s, valid_s, iou_thresh), max_keep)
+    return keep[0] if squeeze else keep

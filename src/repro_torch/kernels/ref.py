@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the port's kernels (port of
+``repro/kernels/ref.py::nms_np`` and ``_corners_np``).
+
+Straight transcriptions of the reference's NumPy oracles, op for op in
+float32: every op is a plain IEEE add/sub/mul/div/min/max, each rounded on
+its own, so on the host they equal the oracles bit for bit. A wrapper in
+``kernels.detect`` runs these for a tensor on the CPU; on the card they
+serve only as what ``chip_smoke.py`` and the tests hold the CUDA kernel
+against.
+"""
+from __future__ import annotations
+
+import torch
+
+IOU_EPS = 1e-9
+
+
+def _corners(boxes: torch.Tensor):
+    """(..., 4) center-format f32 -> x1, y1, x2, y2, area (all f32)."""
+    x1 = boxes[..., 0] - boxes[..., 2] * 0.5
+    y1 = boxes[..., 1] - boxes[..., 3] * 0.5
+    x2 = boxes[..., 0] + boxes[..., 2] * 0.5
+    y2 = boxes[..., 1] + boxes[..., 3] * 0.5
+    return x1, y1, x2, y2, torch.clamp_min((x2 - x1) * (y2 - y1), 0.0)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A threshold as an f32 scalar tensor: comparisons round it to f32
+    first, as the reference's ``np.float32(thresh)`` does."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def nms_keep(boxes_s: torch.Tensor, valid_s: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """The sequential scan of ``kernels/detect.py::_nms_kernel``.
+
+    boxes_s (B, N, 4) f32 sorted by descending score, valid_s (B, N) 0/1
+    f32 -> keep_s (B, N) f32: box i, while still kept, clears every later
+    box whose IoU with it exceeds ``iou_thresh``.
+    """
+    B, N = valid_s.shape
+    x1, y1, x2, y2, area = _corners(boxes_s)
+    keep = valid_s.clone()
+    thresh = _f32(iou_thresh, boxes_s)
+    pos = torch.arange(N, device=boxes_s.device)
+    for i in range(N):
+        ix = torch.clamp_min(torch.minimum(x2[:, i, None], x2) - torch.maximum(x1[:, i, None], x1), 0.0)
+        iy = torch.clamp_min(torch.minimum(y2[:, i, None], y2) - torch.maximum(y1[:, i, None], y1), 0.0)
+        inter = torch.clamp_min(ix * iy, 0.0)
+        iou = inter / torch.clamp_min(area[:, i, None] + area - inter, IOU_EPS)
+        suppress = (pos > i) & (iou > thresh) & (keep[:, i, None] > 0)
+        keep = keep.masked_fill(suppress, 0.0)
+    return keep
+
+
+def sort_by_score(boxes: torch.Tensor, scores: torch.Tensor, score_thresh: float):
+    """Stable descending-score sort (ties keep the original order) ->
+    (order, boxes_s (B, N, 4) f32 contiguous, valid_s (B, N) f32), as the
+    reference's ``nms`` wrapper prepares its kernel's operands."""
+    scores = scores.float()
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    boxes_s = torch.gather(boxes.float(), 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    valid_s = (torch.gather(scores, 1, order) > _f32(score_thresh, scores)).float()
+    return order, boxes_s, valid_s
+
+
+def finish(order: torch.Tensor, keep_s: torch.Tensor, max_keep: int) -> torch.Tensor:
+    """Cap survivors to the top ``max_keep`` by rank (0 = no cap) and
+    scatter the sorted keep mask back to the caller's box order."""
+    if max_keep:
+        rank = torch.cumsum(keep_s, dim=-1)  # survivor rank in score order
+        keep_s = keep_s * (rank <= max_keep).float()
+    return torch.empty_like(keep_s).scatter_(1, order, keep_s)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float = 0.5,
+        score_thresh: float = 0.0, max_keep: int = 0) -> torch.Tensor:
+    """The whole NMS in plain torch (``ref.nms_np``): boxes (B?, N, 4),
+    scores (B?, N) -> keep mask (B?, N) f32 in the original order."""
+    squeeze = boxes.dim() == 2
+    if squeeze:
+        boxes, scores = boxes[None], scores[None]
+    order, boxes_s, valid_s = sort_by_score(boxes, scores, score_thresh)
+    keep = finish(order, nms_keep(boxes_s, valid_s, iou_thresh), max_keep)
+    return keep[0] if squeeze else keep

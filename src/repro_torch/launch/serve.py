@@ -1,0 +1,169 @@
+"""Serving launcher: the online detection service (port of the yolo branch of
+``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --full-size --img-size 416
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --store /tmp/cos
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --one-shot
+  PYTHONPATH=src python -m repro_torch.launch.serve --img-size 32 --device cpu
+
+The default mode stands up ``core.serving.InferenceService`` on a socket,
+drives ``--requests`` synthetic requests through an ``InferenceClient`` and
+prints the QPS/latency/freshness summary as one JSON line. ``--store`` /
+``--task-id`` restore the federated model from a COS store written by either
+package, published at the stored round version. ``--one-shot`` decodes one
+batch and exits. ``--device`` defaults to ``cuda`` and never falls back to
+the CPU. The LM decode path of the reference launcher is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import device as D
+from repro_torch.checkpoint import ObjectStore
+from repro_torch.configs import get_arch
+from repro_torch.models.yolov3 import FedYOLOv3
+
+
+def restore_params(cfg, args, device: torch.device):
+    """COS restore -> (model on ``device``, round version). Without a store
+    the weights are the port's own init from seed 0, version 0."""
+    model = FedYOLOv3(cfg, torch.Generator().manual_seed(0))
+    version = 0
+    if args.store:
+        store = ObjectStore(args.store)
+        version = max(store.rounds(args.task_id))
+        store.restore_into(args.task_id, model)
+    return model.to(device).eval(), version
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def serve_detection(cfg, args, dev: torch.device) -> None:
+    """--one-shot: decode one synthetic batch -> box list JSON, exit."""
+    from repro_torch.core import detection
+    from repro_torch.data import synthetic
+
+    model, _ = restore_params(cfg, args, dev)
+    rng = np.random.default_rng(7)
+    imgs, _ = synthetic.scene_images(rng, args.batch, args.img_size, cfg.vocab_size)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pred = detection.decode_predictions(
+            cfg, model, torch.from_numpy(imgs).to(dev), max_detections=args.max_detections
+        )
+        valid, cls, scores, boxes = (pred[k].cpu().numpy() for k in ("valid", "cls", "scores", "boxes"))
+    dt = time.perf_counter() - t0
+    detections = [
+        [
+            {
+                "label": int(cls[b, k]),
+                "score": round(float(scores[b, k]), 4),
+                "box": [round(float(v), 4) for v in boxes[b, k]],
+            }
+            for k in np.nonzero(valid[b])[0]
+        ]
+        for b in range(args.batch)
+    ]
+    print(json.dumps({
+        "arch": cfg.name,
+        "device": _device_name(dev),
+        "restored": bool(args.store),
+        "detections": detections,
+        "images_per_s": round(args.batch / dt, 2),
+    }))
+
+
+def serve_service(cfg, args, dev: torch.device) -> None:
+    """Stand up the socket service, drive --requests synthetic requests one
+    at a time, print the operational summary."""
+    from repro_torch.core import rounds as R
+    from repro_torch.core import serving
+    from repro_torch.data import synthetic
+
+    fed = R.FedConfig(
+        n_clients=1,
+        serve_batch=args.serve_batch,
+        serve_max_detections=args.max_detections,
+    )
+    model, version = restore_params(cfg, args, dev)
+    slot = serving.ModelSlot()
+    slot.publish(version, model)
+    svc = serving.InferenceService(
+        cfg, fed, slot, img_size=args.img_size, port=args.port, device=dev
+    ).start()
+    try:
+        rng = np.random.default_rng(7)
+        imgs, _ = synthetic.scene_images(rng, args.requests, args.img_size, cfg.vocab_size)
+        # warm the program (first cuDNN/kernel use) so set-up stays out of the latencies
+        with serving.InferenceClient(svc.host, svc.port) as warm:
+            warm.infer(imgs[0])
+        lat = []
+        t0 = time.perf_counter()
+        with serving.InferenceClient(svc.host, svc.port) as client:
+            for i in range(args.requests):
+                t1 = time.perf_counter()
+                res = client.infer(imgs[i])
+                lat.append(time.perf_counter() - t1)
+            total = time.perf_counter() - t0
+            status = client.status()
+    finally:
+        svc.stop()
+    lat.sort()
+    print(json.dumps({
+        "arch": cfg.name,
+        "device": _device_name(dev),
+        "restored": bool(args.store),
+        "version": status["version"],
+        "tier": status["tier"],
+        "requests": args.requests,
+        "dropped": status["in_flight"],
+        "qps": round(args.requests / total, 2),
+        "p50_ms": round(lat[len(lat) // 2] * 1e3, 3),
+        "p99_ms": round(lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3, 3),
+        "avg_occupancy": status["avg_occupancy"],
+        "last_detections": len(res.detections),
+    }))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="fedyolov3")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--batch", type=int, default=4, help="--one-shot: images decoded")
+    ap.add_argument("--img-size", type=int, default=64, help="served image size")
+    ap.add_argument("--max-detections", type=int, default=16, help="NMS output slots")
+    ap.add_argument("--store", default="", help="COS dir to restore the federated model from")
+    ap.add_argument("--task-id", default="fedyolo", help="COS task id (with --store)")
+    ap.add_argument("--one-shot", action="store_true",
+                    help="decode one synthetic batch and exit")
+    ap.add_argument("--port", type=int, default=0, help="service port (0 = ephemeral)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="service: synthetic requests to drive through the socket")
+    ap.add_argument("--serve-batch", type=int, default=8,
+                    help="service: batch slots of the decode+NMS program")
+    ap.add_argument("--full-size", action="store_true",
+                    help="use the full config (must match how the stored model was trained)")
+    args = ap.parse_args()
+
+    try:
+        cfg = get_arch(args.arch)  # only the detection model is ported
+    except KeyError as e:
+        raise SystemExit(e.args[0]) from None
+    if not args.full_size:
+        cfg = cfg.reduced()
+    dev = D.resolve(args.device)
+    if args.one_shot:
+        serve_detection(cfg, args, dev)
+    else:
+        serve_service(cfg, args, dev)
+
+
+if __name__ == "__main__":
+    main()
