@@ -1,0 +1,83 @@
+"""Explorer's straggler load model (port of ``repro/core/explorer.py``:
+``LoadModelConfig``, ``ClientLoadModel``).
+
+The Explorer monitors the clients' resource use to inform the Task
+Scheduler. In the simulated platform every client shares one host, so
+:class:`ClientLoadModel` stands in for the per-client reports: a persistent
+heterogeneous load process whose per-round values feed the scheduler. A
+NumPy copy: the same seed gives the same loads. The /proc monitor and the
+i.i.d. ``simulated_loads`` belong to later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class LoadModelConfig:
+    straggler_frac: float = 0.25  # fraction of chronically overloaded clients
+    straggler_load: float = 0.85  # their baseline load
+    base_load: float = 0.25  # everyone else's baseline
+    base_spread: float = 0.1  # per-client baseline spread
+    persistence: float = 0.8  # AR(1) pull toward the baseline, per sim second
+    jitter: float = 0.08  # AR(1) innovation scale, per sqrt(sim second)
+    spike_prob: float = 0.05  # transient spike probability per sim second
+    spike_load: float = 1.0  # spike level (device fully busy)
+    spike_duration_s: float = 1.0  # how long a spike pins the load, sim seconds
+
+
+class ClientLoadModel:
+    """Persistent per-client load process: stragglers + AR(1) drift + spikes.
+
+    A fixed straggler subset sits near ``straggler_load`` every round, the
+    rest drift around their own baseline, and any client can transiently
+    spike to ``spike_load``. ``step(dt)`` advances ``dt`` simulated seconds;
+    the AR(1) pull and innovation scale with dt and a spike pins the load
+    for ``spike_duration_s``. ``step()`` (dt = 1) is one sync round.
+    Deterministic under a fixed seed.
+    """
+
+    def __init__(self, n_clients: int, seed: int = 0, config: LoadModelConfig | None = None):
+        self.cfg = config or LoadModelConfig()
+        self.n = n_clients
+        self._rng = np.random.default_rng(seed)
+        n_strag = int(round(self.cfg.straggler_frac * n_clients))
+        self.stragglers = self._rng.choice(n_clients, size=n_strag, replace=False)
+        self.baseline = np.clip(
+            self.cfg.base_load + self.cfg.base_spread * self._rng.standard_normal(n_clients),
+            0.05,
+            0.6,
+        )
+        self.baseline[self.stragglers] = self.cfg.straggler_load
+        self.loads = self.baseline.copy()
+        self.t = 0.0  # simulated seconds of process time advanced so far
+        self._spike_until = np.full(n_clients, -np.inf)  # spike end times
+
+    def step(self, dt: float = 1.0) -> np.ndarray:
+        """Advance ``dt`` simulated seconds; returns the (n,) load in [0, 1]."""
+        if dt < 0:
+            raise ValueError(f"load model cannot run backwards (dt={dt})")
+        c = self.cfg
+        self.t += dt
+        rho = c.persistence ** dt
+        # AR(1)-consistent innovation for a dt-second step (exactly jitter
+        # at dt = 1; the random-walk limit is sqrt(dt))
+        r2 = c.persistence ** 2
+        scale = c.jitter * (
+            math.sqrt(dt) if r2 >= 1.0 else math.sqrt((1.0 - r2 ** dt) / (1.0 - r2))
+        )
+        innov = scale * self._rng.standard_normal(self.n)
+        ar = rho * self.loads + (1 - rho) * self.baseline + innov
+        # spike arrivals at a per-second rate, the window capped at the
+        # spike duration; a window of exactly 1 keeps the literal spike_prob
+        win = min(dt, c.spike_duration_s)
+        p = c.spike_prob if win == 1.0 else 1.0 - (1.0 - c.spike_prob) ** win
+        fired = self._rng.random(self.n) < p
+        self._spike_until = np.where(fired, self.t + c.spike_duration_s, self._spike_until)
+        active = fired | (self.t < self._spike_until)
+        self.loads = np.where(active, c.spike_load, ar)
+        self.loads = np.clip(self.loads, 0.0, 1.0)
+        return self.loads.copy()

@@ -1,13 +1,42 @@
-"""Federated round configuration (port of ``repro/core/rounds.py::FedConfig``).
+"""Federated rounds (port of ``repro/core/rounds.py``): ``FedConfig``, the
+round state and the flat synchronous round.
 
-Only the dataclass is ported so far, with every field of the reference so
-later slices extend it in place; the serving plane reads its ``serve_*``
-fields. The round machinery (``make_state``, the flat round, participation)
-belongs to the training slice.
+Flat-state engine: the round state ``state["params"]`` is the packed
+``(C, N_total)`` buffer of ``core.packing``, one preallocated tensor for the
+whole run, and each optimizer moment is one more ``(C, N_total)`` buffer in
+the same layout (``optim``). One round:
+
+1. each client that takes part trains E local steps on views of its own row
+   (``packing.unpack_views``): the functional ``yolov3.forward`` runs over
+   the views, autograd returns the gradient in the packed layout, and the
+   optimizer updates the row and its moment rows in place. The reference
+   vmaps the clients and scans the steps inside one donated jit; here the
+   clients are a loop and the steps a Python loop, and the in-place update
+   of the one buffer takes the place of donation;
+2. the buffer goes straight to the registered aggregator, which writes the
+   dispatch into it in place (``core.aggregators``).
+
+Participation comes from the Task Scheduler as NumPy (``participation_input``):
+``full`` trains every client; ``masked`` trains only the clients with
+``mask[c] == 1``, the others keep their params and optimizer rows untouched
+and report loss 0. Either way the mask, when given, rides into the
+aggregation and the mean loss (a bare weight vector means mask ``None``). Compact participation, the tree layout, the fedsgd topology
+and mesh sharding belong to later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregators, packing
+from repro_torch.models import params as mp
+from repro_torch.models import yolov3
+from repro_torch.optim import Optimizer
+
+PyTree = Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,7 +49,7 @@ class FedConfig:
     data_axis: str | None = "data"  # within-client data-parallel axis
     round_idx_static: int = 0  # static_topn: trace-time round phase
     microbatches: int = 1  # grad-accumulation splits of each local step
-    agg_impl: str = "ref"  # ref (plain torch) | kernel (aggregation slice)
+    agg_impl: str = "ref"  # ref (plain torch) | kernel (the K1 CUDA kernel)
     quant_block: int = 1024  # quant8: elements per int8 scale block
     server_lr: float = 1.0  # fedavgm/fedadam server step (fedadam wants ~0.01-0.1)
     server_momentum: float = 0.9  # fedavgm momentum / fedadam b1
@@ -59,3 +88,184 @@ class FedConfig:
     serve_hard_stale_rounds: int = 8  # freshness: rounds-behind beyond this -> hard_stale
     serve_soft_stale_s: float = 60.0  # freshness: seconds-behind beyond this -> soft_stale
     serve_hard_stale_s: float = 600.0  # freshness: seconds-behind beyond this -> hard_stale
+
+
+def loss_for(cfg) -> Callable:
+    if cfg.family != "yolo":
+        raise NotImplementedError(f"{cfg.name}: the LM family is ported in slice 7")
+    return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
+
+
+def make_template(cfg) -> PyTree:
+    if cfg.family != "yolo":
+        raise NotImplementedError(f"{cfg.name}: the LM family is ported in slice 7")
+    return yolov3.template(cfg)
+
+
+def make_aggregator(cfg, fed: FedConfig) -> aggregators.Aggregator:
+    """Resolve ``FedConfig.aggregation`` through the registry (unknown names
+    and configurations the port does not run yet fail here)."""
+    _check_ported(fed)
+    tpl = make_template(cfg)
+    spec = packing.build_pack_spec(cfg, tpl)
+    ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec)
+    return aggregators.get(fed.aggregation)(ctx)
+
+
+def _check_ported(fed: FedConfig) -> None:
+    if fed.state_layout == "tree":
+        raise NotImplementedError("state_layout='tree' (the legacy reference path) is slice 9")
+    if fed.state_layout != "flat":
+        raise ValueError(f"unknown state_layout {fed.state_layout!r}; expected flat|tree")
+    if fed.aggregation == "fedsgd":
+        raise NotImplementedError("the fedsgd topology is ported in slice 3")
+    if fed.participation == "compact":
+        raise NotImplementedError("compact participation is ported in slice 3")
+    if fed.participation not in ("full", "masked"):
+        raise ValueError(f"unknown participation {fed.participation!r}; expected full|masked|compact")
+    if fed.microbatches != 1:
+        raise NotImplementedError("microbatched local steps come with the LM family in slice 7")
+    if fed.agg_impl not in ("ref", "kernel"):
+        raise ValueError(f"unknown agg_impl {fed.agg_impl!r}; expected ref|kernel")
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Generator | None = None,
+               device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32) -> PyTree:
+    """The flat round state on ``device``: every client row starts from one
+    model (the server's dispatch) drawn by ``init_params`` from
+    ``generator`` (seed 0 when None). Parity with the reference comes from
+    carrying its state over (``models.convert.state_from_reference``)."""
+    from repro_torch import device as D
+
+    dev = D.resolve(device)
+    agg = make_aggregator(cfg, fed)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    tree = mp.init_params(agg.ctx.template, generator, dtype)
+    row = packing.pack(agg.ctx.spec, mp.map_tree(lambda x: x[None], tree), dtype)
+    packed = row.to(dev).expand(fed.n_clients, -1).contiguous()
+    return {
+        "params": packed,
+        "opt": optimizer.init(packed),
+        "agg": agg.init_state(packed),
+        "round": 0,
+    }
+
+
+def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
+    """Edge helper: the client-stacked HWIO param tree of a flat state (one
+    copy)."""
+    tpl = make_template(cfg)
+    return packing.unpack(packing.build_pack_spec(cfg, tpl), state["params"], tpl)
+
+
+# ---------------------------------------------------------------------------
+# Participation input and batches
+# ---------------------------------------------------------------------------
+
+def participation_input(fed: FedConfig, mask, weights, idx=None) -> dict:
+    """Host arrays from the scheduler -> the round's participation operands,
+    ``{"mask": (C,) f32, "weights": (C,) f32}`` host tensors (the round reads
+    the mask on the host to pick the clients that train, then moves both to
+    its device)."""
+    if fed.participation == "compact" or idx is not None:
+        raise NotImplementedError("compact participation is ported in slice 3")
+    return {
+        "mask": torch.as_tensor(np.asarray(mask, np.float32)),
+        "weights": torch.as_tensor(np.asarray(weights, np.float32)),
+    }
+
+
+def _parse_participation(part, device: torch.device):
+    """A bare (C,) weight vector means full participation (mask None); a
+    dict is ``participation_input``'s output."""
+    if isinstance(part, dict):
+        return part["weights"].float().to(device), part["mask"].float()
+    return torch.as_tensor(part).float().to(device), None
+
+
+def to_device(batch: PyTree, device: str | torch.device) -> PyTree:
+    """A batch tree of NumPy arrays or tensors -> tensors on ``device``."""
+    return mp.map_tree(lambda x: torch.as_tensor(x, device=device), batch)
+
+
+# ---------------------------------------------------------------------------
+# The round
+# ---------------------------------------------------------------------------
+
+def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Callable:
+    """Returns ``fed_round(state, batch, part) -> (state, metrics)``.
+
+    batch: ``{"images" (C, E, b, H, W, 3), "targets": per scale {"obj",
+    "box", "cls"} (C, E, b, ...)}`` on the state's device (``to_device``).
+    part: a bare (C,) normalized weight vector (full participation) or the
+    ``participation_input`` dict. metrics: ``{"loss": participant mean,
+    "client_loss": (C,)}``, tensors on the device (no host sync).
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding of the client axis is ported in slice 3")
+    if fed.mode != "sync":
+        raise ValueError(
+            f"build_fed_round builds the synchronous round (mode='sync'), got "
+            f"mode={fed.mode!r}; the async engines are ported in slice 4"
+        )
+    agg = make_aggregator(cfg, fed)
+    spec, tpl = agg.ctx.spec, agg.ctx.template
+    loss_fn = loss_for(cfg)
+
+    def grads_of(row: torch.Tensor, step_batch: PyTree):
+        """(loss, packed gradient) of one local step at ``row``: the loss runs
+        over views of a detached alias of the row, so the gradient comes
+        back as one (N_total,) tensor in the packed layout."""
+        flat = row.detach().requires_grad_(True)
+        loss, _ = loss_fn(packing.unpack_views(spec, flat, tpl), step_batch)
+        (g,) = torch.autograd.grad(loss, flat)
+        return loss.detach(), g
+
+    def local_train(c: int, packed: torch.Tensor, opt: dict, batch: PyTree) -> torch.Tensor:
+        """Client c's E local steps on its row, in place -> mean step loss."""
+        row = packed[c]
+        opt_row = {k: v[c] for k, v in opt.items()}
+        losses = []
+        for e in range(fed.local_steps):
+            loss, g = grads_of(row, mp.map_tree(lambda x: x[c, e], batch))
+            with torch.no_grad():
+                optimizer.update(row, g, opt_row)
+            losses.append(loss)
+        return torch.stack(losses).mean()
+
+    def fed_round(state: PyTree, batch: PyTree, part):
+        packed = state["params"]
+        weights, mask = _parse_participation(part, packed.device)
+        C = fed.n_clients
+        # full participation trains every client (the mask still shapes the
+        # aggregate and the mean loss); masked trains the selected ones only
+        gated = fed.participation == "masked" and mask is not None
+        on = [m > 0 for m in mask.tolist()] if gated else [True] * C
+        loss = torch.zeros(C, dtype=torch.float32, device=packed.device)
+        for c in range(C):
+            if on[c]:
+                loss[c] = local_train(c, packed, state["opt"], batch)
+        mask_d = None if mask is None else mask.to(packed.device)
+        packed, agg_state = agg.aggregate(packed, weights, state["agg"], mask_d)
+        out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
+        return out, _round_metrics(loss, mask_d)
+
+    return fed_round
+
+
+def _round_metrics(loss: torch.Tensor, mask: torch.Tensor | None) -> dict:
+    if mask is None:
+        mean_loss = torch.mean(loss)
+    else:
+        mean_loss = torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return {"loss": mean_loss, "client_loss": loss}
+
+
+def uniform_weights(n_clients: int) -> torch.Tensor:
+    """Paper Eq. 5: unweighted average."""
+    return torch.full((n_clients,), 1.0 / n_clients, dtype=torch.float32)

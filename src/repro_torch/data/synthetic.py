@@ -1,8 +1,10 @@
-"""Synthetic detection scenes (port of ``repro/data/synthetic.py::scene_images``).
+"""Synthetic detection scenes (port of the image half of
+``repro/data/synthetic.py``: ``scene_images``, ``boxes_to_arrays``,
+``detection_scene_pool``).
 
 A NumPy copy: the same ``np.random.default_rng`` seed gives bit-identical
-images and boxes to the reference's. The token, audio and scene-pool
-generators belong to later slices.
+images and boxes to the reference's. The token and audio generators belong
+to later slices.
 """
 from __future__ import annotations
 
@@ -48,3 +50,65 @@ def scene_images(
             boxes.append(BBox(label, x, y, w, h))
         all_boxes.append(boxes)
     return imgs, all_boxes
+
+
+def boxes_to_arrays(all_boxes: list[list[BBox]], max_boxes: int):
+    """Pad BBox lists to the fixed-shape GT arrays the evaluator takes:
+    (B, G, 4) center-format f32, (B, G) int32 labels, (B, G) 0/1 validity.
+    Boxes beyond ``max_boxes`` are dropped."""
+    B = len(all_boxes)
+    boxes = np.zeros((B, max_boxes, 4), np.float32)
+    cls = np.zeros((B, max_boxes), np.int32)
+    valid = np.zeros((B, max_boxes), np.float32)
+    for b, bs in enumerate(all_boxes):
+        for g, bb in enumerate(bs[:max_boxes]):
+            boxes[b, g] = [bb.x, bb.y, bb.w, bb.h]
+            cls[b, g] = bb.label
+            valid[b, g] = 1.0
+    return boxes, cls, valid
+
+
+def detection_scene_pool(
+    n_scenes: int,
+    size: int,
+    n_classes: int,
+    rng: np.random.Generator,
+    *,
+    max_boxes: int = 3,
+    dominance: float = 0.8,
+    scale_spread: float = 0.25,
+):
+    """Labeled scene pool for ``data.partition.make_scenario`` splits.
+
+    Scene i has a dominant class (its partition label): objects draw that
+    class with probability ``dominance`` and a box-scale band tied to it
+    (class c's boxes live around ``0.12 + scale_spread * c / (K-1)``), so a
+    split by label skews both classes and box scales per client.
+
+    Returns {"images" (P,S,S,3), "bboxes" list[list[BBox]], "gt_boxes"
+    (P,G,4), "gt_cls" (P,G), "gt_valid" (P,G), "labels" (P,)}.
+    """
+    images = np.empty((n_scenes, size, size, 3), np.float32)
+    bboxes: list[list[BBox]] = []
+    labels = np.empty(n_scenes, np.int64)
+    for i in range(n_scenes):
+        dom = int(rng.integers(0, n_classes))
+        probs = np.full(n_classes, (1.0 - dominance) / max(n_classes - 1, 1))
+        probs[dom] = dominance if n_classes > 1 else 1.0
+        base = 0.12 + scale_spread * dom / max(n_classes - 1, 1)
+        im, bs = scene_images(
+            rng, 1, size, n_classes, max_boxes,
+            class_probs=probs, scale_range=(base, base + 0.2),
+        )
+        images[i] = im[0]
+        bboxes.append(bs[0])
+        labels[i] = dom
+    gt_boxes, gt_cls, gt_valid = boxes_to_arrays(bboxes, max_boxes)
+    return {
+        "images": images,
+        "bboxes": bboxes,
+        "gt_boxes": gt_boxes,
+        "gt_cls": gt_cls,
+        "gt_valid": gt_valid,
+        "labels": labels,
+    }

@@ -99,7 +99,3 @@ extern "C" int nms_keep_launch(const float* boxes, const float* valid, float* ke
       boxes, valid, keep, n, iou_thresh);
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" const char* nms_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,4 +1,10 @@
-"""Detection kernels (port of ``repro/kernels/detect.py``): NMS.
+"""Detection kernels (port of ``repro/kernels/detect.py``): pairwise IoU
+and NMS.
+
+:func:`pairwise_iou` is the eval matcher's IoU/GIoU matrix: the
+hand-written CUDA kernel ``csrc/iou.cu`` for tensors on the card, its plain
+version ``kernels.ref.pairwise_iou`` for tensors on the CPU, one launch for
+the whole (batched) call.
 
 :func:`nms` is the reference's ``nms`` wrapper: a stable descending-score
 sort, one launch of the sequential keep-mask scan over every image of the
@@ -7,14 +13,53 @@ The scan, :func:`nms_keep`, is the hand-written CUDA kernel
 ``csrc/nms.cu`` for a tensor on the card, and its plain version
 ``kernels.ref.nms_keep`` for a tensor on the CPU. A CUDA tensor never takes
 the plain version: the kernel launches or the call raises.
-
-``pairwise_iou`` (eval matching) belongs to a later slice.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+
+
+# the CUDA grid's y and z extents: ceil(N / 8) a-box tiles and the batch
+GRID_LIMIT = 65535
+
+
+def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor, *, giou: bool = False) -> torch.Tensor:
+    """boxes_a (B?, N, 4), boxes_b (B?, M, 4) center-format f32 -> (B?, N, M)
+    f32 IoU (or GIoU). Counts its CUDA launches in ``pairwise_iou.launches``."""
+    if boxes_a.device.type == "cpu":
+        return ref.pairwise_iou(boxes_a, boxes_b, giou)
+    if boxes_a.device.type != "cuda":
+        raise ValueError(f"pairwise_iou runs on cuda or cpu tensors, not {boxes_a.device}")
+    squeeze = boxes_a.dim() == 2
+    if squeeze:
+        boxes_a, boxes_b = boxes_a[None], boxes_b[None]
+    if (boxes_a.dim() != 3 or boxes_b.dim() != 3 or boxes_a.shape[2] != 4
+            or boxes_b.shape[2] != 4 or boxes_a.shape[0] != boxes_b.shape[0]):
+        raise ValueError(f"expected boxes (B?, N, 4) and (B?, M, 4), got "
+                         f"{tuple(boxes_a.shape)} and {tuple(boxes_b.shape)}")
+    if boxes_a.dtype != torch.float32 or boxes_b.dtype != torch.float32:
+        raise TypeError("pairwise_iou takes float32 boxes")
+    if boxes_b.device != boxes_a.device:
+        raise ValueError("both box sets must be on one device")
+    B, N, _ = boxes_a.shape
+    M = boxes_b.shape[1]
+    if B > GRID_LIMIT or -(-N // 8) > GRID_LIMIT:
+        raise ValueError(f"B={B}, N={N} exceed the kernel's grid")
+    boxes_a, boxes_b = boxes_a.contiguous(), boxes_b.contiguous()
+    out = torch.empty((B, N, M), dtype=torch.float32, device=boxes_a.device)
+    lib = _build.library()
+    with torch.cuda.device(boxes_a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.pairwise_iou_launch(boxes_a.data_ptr(), boxes_b.data_ptr(), out.data_ptr(),
+                                       B, N, M, int(giou), stream)
+    _build.check(lib, code, "pairwise_iou launch")
+    pairwise_iou.launches += 1
+    return out[0] if squeeze else out
+
+
+pairwise_iou.launches = 0
 
 
 def nms_keep(boxes_s: torch.Tensor, valid_s: torch.Tensor, iou_thresh: float) -> torch.Tensor:

@@ -1,11 +1,15 @@
 """Plain PyTorch versions of the port's kernels (port of
-``repro/kernels/ref.py::nms_np`` and ``_corners_np``).
+``repro/kernels/ref.py::nms_np``, ``pairwise_iou_np``, ``_corners_np`` and
+``packed_bucket_reduce``).
 
-Straight transcriptions of the reference's NumPy oracles, op for op in
-float32: every op is a plain IEEE add/sub/mul/div/min/max, each rounded on
-its own, so on the host they equal the oracles bit for bit. A wrapper in
-``kernels.detect`` runs these for a tensor on the CPU; on the card they
-serve only as what ``chip_smoke.py`` and the tests hold the CUDA kernel
+The detection versions are straight transcriptions of the reference's
+NumPy oracles, op for op in float32: every op is a plain IEEE
+add/sub/mul/div/min/max, each rounded on its own, so on the host they equal
+the oracles bit for bit. :func:`packed_bucket_reduce` is the reference's
+oracle written as the CUDA kernel's ordered client chain, so kernel and
+plain version agree bit for bit on the card. A wrapper in ``kernels.detect``
+or ``kernels.pack`` runs these for a tensor on the CPU; on the card they
+serve only as what ``chip_smoke.py`` and the tests hold the CUDA kernels
 against.
 """
 from __future__ import annotations
@@ -82,3 +86,44 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float = 0.5,
     order, boxes_s, valid_s = sort_by_score(boxes, scores, score_thresh)
     keep = finish(order, nms_keep(boxes_s, valid_s, iou_thresh), max_keep)
     return keep[0] if squeeze else keep
+
+
+def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor, giou: bool = False) -> torch.Tensor:
+    """``ref.pairwise_iou_np``: boxes_a (B?, N, 4), boxes_b (B?, M, 4)
+    center-format f32 -> (B?, N, M) f32 IoU, or GIoU. Zero-area boxes score
+    0 against everything (the 1e-9 union floor)."""
+    ax1, ay1, ax2, ay2, aa = _corners(boxes_a.float())
+    bx1, by1, bx2, by2, ba = _corners(boxes_b.float())
+    a_, b_ = (lambda t: t[..., :, None]), (lambda t: t[..., None, :])
+    ix = torch.clamp_min(torch.minimum(a_(ax2), b_(bx2)) - torch.maximum(a_(ax1), b_(bx1)), 0.0)
+    iy = torch.clamp_min(torch.minimum(a_(ay2), b_(by2)) - torch.maximum(a_(ay1), b_(by1)), 0.0)
+    inter = torch.clamp_min(ix * iy, 0.0)
+    union = a_(aa) + b_(ba) - inter
+    iou = inter / torch.clamp_min(union, IOU_EPS)
+    if not giou:
+        return iou
+    cx = torch.maximum(a_(ax2), b_(bx2)) - torch.minimum(a_(ax1), b_(bx1))
+    cy = torch.maximum(a_(ay2), b_(by2)) - torch.minimum(a_(ay1), b_(by1))
+    carea = torch.clamp_min(cx * cy, 0.0)
+    return iou - (carea - union) / torch.clamp_min(carea, IOU_EPS)
+
+
+def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: torch.Tensor,
+                         mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``packed_bucket_reduce``: packed (C, N), wmask (C, B),
+    bucket_ids (N,) int, mask (C,) 0/1 or None -> (num (N,), den (N,)) f32
+    with ``num[n] = sum_c mask[c] wmask[c, ids[n]] packed[c, n]`` and
+    ``den[n] = sum_c mask[c] wmask[c, ids[n]]``, the clients summed in order
+    c = 0..C-1 from zero, one rounding per product and per sum."""
+    C, N = packed.shape
+    wm = wmask.float()
+    if mask is not None:
+        wm = wm * mask.float()[:, None]
+    ids = bucket_ids.long()
+    num = torch.zeros(N, dtype=torch.float32, device=packed.device)
+    den = torch.zeros(N, dtype=torch.float32, device=packed.device)
+    for c in range(C):
+        w = wm[c][ids]
+        num = num + packed[c].float() * w
+        den = den + w
+    return num, den

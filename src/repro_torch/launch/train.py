@@ -1,0 +1,195 @@
+"""Federated training launcher (port of the ``--task detection`` path of
+``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --full-size \\
+      --img-size 416 --clients 3 --participation masked --max-participants 2 \\
+      --optimizer sgd --lr 1e-3 --topn 4 --batch 8 --eval-every 5 --store /tmp/cos
+
+Runs the paper's federated detection workload: FedYOLOv3 over a
+partitioned synthetic scene pool, the Task Scheduler and the Explorer's
+load model choosing participants, Eq. 6 aggregation through the K1 CUDA
+kernel (``agg_impl="kernel"``), COS checkpoints every 5 rounds with
+``--store``, global and per-client mAP@0.5 every ``--eval-every`` rounds
+(IoU and NMS kernels). After the last round the global model is published
+to a ``ModelSlot`` and 4 synthetic frames are decoded through the serving
+plane's detection program: train -> evaluate -> serve. ``--device``
+defaults to ``cuda`` and never falls back to the CPU.
+
+The LM workload, ``--mode async``, ``--transport socket``, ``--restore`` and
+``--replay-schedule`` belong to later slices and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as D
+from repro_torch.checkpoint import ObjectStore
+from repro_torch.configs import get_arch
+from repro_torch.core import aggregators, monitor, serving
+from repro_torch.core.rounds import FedConfig
+from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
+from repro_torch.core.server import FLServer
+from repro_torch.data import partition, synthetic
+from repro_torch.data.pipeline import detection_suite
+from repro_torch.optim import adamw, sgd
+
+SERVE_FRAMES = 4  # frames decoded through the serving program after training
+
+
+def default_topn(cfg) -> int:
+    """Paper: user-set n. Default: a quarter of the layer buckets
+    (``launch/specs.py::default_topn``)."""
+    return max(1, (cfg.n_layers + 1) // 4)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, help="architecture (default fedyolov3)")
+    ap.add_argument("--task", default="auto", choices=["auto", "lm", "detection"])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu; no fallback")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="run server.evaluate_round every N rounds (and after the last)")
+    ap.add_argument("--img-size", type=int, default=64, help="detection scene size")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=1)
+    ap.add_argument("--agg", default="eq6", choices=list(aggregators.names()))
+    ap.add_argument("--topn", type=int, default=0)
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"])
+    ap.add_argument("--transport", default="inproc", choices=["inproc", "socket"])
+    ap.add_argument("--restore", default="", help="durable-run recovery (a later slice)")
+    ap.add_argument("--replay-schedule", default="", help="schedule replay (a later slice)")
+    ap.add_argument("--participation", default="full", choices=["full", "masked", "compact"])
+    ap.add_argument("--max-participants", type=int, default=0,
+                    help="scheduler budget per round (0 -> clients//2, min 2)")
+    ap.add_argument("--fairness-rounds", type=int, default=4,
+                    help="force-include clients idle this many rounds")
+    ap.add_argument("--partition", default="stream", choices=["stream", *partition.SCENARIOS],
+                    help="client data split; stream means the iid control for detection")
+    ap.add_argument("--alpha", type=float, default=0.5, help="dirichlet label-skew concentration")
+    ap.add_argument("--batch", type=int, default=4, help="images per client per local step")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    ap.add_argument("--full-size", action="store_true", help="use the full (non-reduced) config")
+    ap.add_argument("--store", default="", help="COS object-store directory")
+    ap.add_argument("--seed", type=int, default=0, help="initial model and load model seed")
+    return ap
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a detection run leaves behind: the server (history, evals,
+    state), the slot the trained model was published to, the eval holdout,
+    the served frames' decode and the JSON summary."""
+
+    server: FLServer
+    slot: serving.ModelSlot
+    eval_batch: dict
+    served: dict
+    summary: dict[str, Any]
+
+
+def _check_ported(args) -> None:
+    if args.replay_schedule:
+        raise NotImplementedError("--replay-schedule (the recorded wire schedule) is slice 5")
+    if args.restore:
+        raise NotImplementedError("--restore (durable-run recovery) is slice 5")
+    if args.transport != "inproc":
+        raise NotImplementedError("--transport socket (the multi-process wire) is slice 5")
+    if args.mode != "sync":
+        raise NotImplementedError("--mode async (the buffered engines) is slice 4")
+    if args.task == "lm":
+        raise NotImplementedError("--task lm (the LM family) is slice 7")
+
+
+def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
+    """The train -> evaluate -> serve sequence for parsed ``args``."""
+    _check_ported(args)
+    dev = D.resolve(args.device)
+    cfg = get_arch(args.arch or "fedyolov3")
+    if cfg.family != "yolo":
+        raise NotImplementedError(f"{cfg.name}: only the detection task is ported")
+    if not args.full_size:
+        cfg = cfg.reduced()
+    budget = args.max_participants or max(2, args.clients // 2)
+    fed = FedConfig(
+        n_clients=args.clients,
+        local_steps=args.local_steps,
+        aggregation=args.agg,
+        topn=args.topn or default_topn(cfg),
+        client_axis="data",
+        data_axis=None,
+        participation=args.participation,
+        agg_impl="kernel",
+    )
+    optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
+    store = ObjectStore(args.store) if args.store else None
+    task_id = cfg.name
+    server = FLServer(
+        cfg, fed, optimizer, store=store,
+        scheduler=TaskScheduler(fed.n_clients, SchedulerConfig(
+            max_participants=budget, fairness_rounds=args.fairness_rounds)),
+        seed=args.seed, checkpoint_every=5 if store else 0, task_id=task_id, device=dev,
+    )
+    scenario = "iid" if args.partition == "stream" else args.partition
+    gen, eval_batch, _ = detection_suite(cfg, fed, batch=args.batch, img_size=args.img_size,
+                                         scenario=scenario, alpha=args.alpha)
+    if args.eval_every:
+        for r in range(args.rounds):
+            rec = server.run_round(next(gen))
+            if r % args.eval_every == 0 or r == args.rounds - 1:
+                ev = server.evaluate_round(eval_batch)
+                per = " ".join(f"{m:.3f}" for m in ev.per_client_map)
+                log(f"round {rec.round_idx:4d}  loss {rec.loss:.4f}  "
+                    f"mAP@0.5 {ev.map50:.3f}  per-client [{per}]")
+    else:
+        server.fit(gen, args.rounds, log=log)
+    history = server.history
+
+    # serve: publish the global model, decode frames through the program
+    slot = serving.ModelSlot()
+    model = server.global_params()
+    slot.publish(len(history), model)
+    imgs, _ = synthetic.scene_images(np.random.default_rng(7), SERVE_FRAMES, args.img_size,
+                                     cfg.vocab_size)
+    program = serving.detection_program(cfg, FedConfig(n_clients=1).serve_max_detections, dev)
+    served = serving.to_host(program(slot.snapshot().params, torch.from_numpy(imgs)))
+    kept = int(served["valid"].sum())
+    log(f"serving {SERVE_FRAMES} frames (version {len(history)}): {kept} detections after NMS "
+        f"(top score {float(served['scores'].max()):.3f})")
+
+    summary = {
+        "final_loss": history[-1].loss,
+        "rounds": len(history),
+        "participation": args.participation,
+        "mean_participants": sum(len(r.participants) for r in history) / len(history),
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "served_version": len(history),
+        "served_detections": kept,
+    }
+    if store:
+        summary["stored_rounds"] = store.rounds(task_id)
+    if server.eval_history:
+        log(monitor.render_task(task_id, history, fed.n_clients, eval_history=server.eval_history))
+        summary["final_map"] = server.eval_history[-1].map50
+        summary["per_client_map"] = server.eval_history[-1].per_client_map
+    return TrainRun(server, slot, eval_batch, served, summary)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = build_parser().parse_args(argv)
+    run = train_detection(args)
+    print(json.dumps(run.summary), flush=True)
+    return run.summary
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

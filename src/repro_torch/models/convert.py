@@ -7,6 +7,12 @@ keeps them OIHW under state keys that are the same paths joined with ``.``.
 Both directions only permute axes, so a round trip is bit-exact. The tests
 use this to give both packages identical weights, and the checkpoint store
 uses it to read and write the reference's npz layout.
+
+:func:`state_from_reference` and :func:`state_to_reference` carry a flat
+round state across: the reference's ``state["params"]`` is already the
+packed ``(C, N_total)`` buffer in the port's layout, and its optimizer
+moments (client-stacked trees such as ``state["opt"]["mu"]``) pack into the
+port's ``(C, N_total)`` moment buffers.
 """
 from __future__ import annotations
 
@@ -16,17 +22,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.params import flatten_with_paths
+from repro_torch.models.params import flatten_with_paths, map_tree
 
 PyTree = Any
 
 
 def from_reference(tree: PyTree) -> dict[str, torch.Tensor]:
-    """Reference HWIO tree (numpy arrays or host tensors) -> OIHW state dict."""
+    """Reference HWIO tree (NumPy arrays or tensors on any device) -> OIHW
+    state dict (tensors stay on their device)."""
     return {
-        path.replace("/", "."): torch.tensor(np.asarray(leaf)).permute(3, 2, 0, 1).contiguous()
+        path.replace("/", "."): _tensor(leaf).permute(3, 2, 0, 1).contiguous()
         for path, leaf in flatten_with_paths(tree)
     }
+
+
+def _tensor(leaf) -> torch.Tensor:
+    return leaf if isinstance(leaf, torch.Tensor) else torch.tensor(np.asarray(leaf))
 
 
 def to_reference(module: nn.Module) -> PyTree:
@@ -49,3 +60,49 @@ def _tuplify(node):
     if all(k.isdigit() for k in node):
         return tuple(_tuplify(node[str(i)]) for i in range(len(node)))
     return {k: _tuplify(node[k]) for k in sorted(node)}
+
+
+def _spec(cfg):
+    from repro_torch.core import packing
+    from repro_torch.models import yolov3
+
+    tpl = yolov3.template(cfg)
+    return packing.build_pack_spec(cfg, tpl), tpl
+
+
+def state_from_reference(cfg, params, opt: dict, device: str | torch.device = "cpu"):
+    """The reference's flat state -> (packed params (C, N_total), opt dict).
+
+    params: ``state["params"]`` as a (C, N_total) array; opt:
+    ``state["opt"]`` with each moment a client-stacked tree of (C, *shape)
+    arrays (``{"mu": tree}`` for sgd, ``{"m", "v": tree, "t": (C,)}`` for
+    adamw, ``{}`` for stateless sgd). Moments pack into (C, N_total)
+    buffers; the step count stays a (C,) tensor."""
+    from repro_torch.core import packing
+
+    spec, _ = _spec(cfg)
+    packed = torch.tensor(np.asarray(params, np.float32), device=device)
+    if packed.shape[1] != spec.n_total:
+        raise ValueError(f"params have {packed.shape[1]} columns, the spec {spec.n_total}")
+    as_t = lambda x: torch.tensor(np.asarray(x), device=device)
+    out = {k: packing.pack(spec, map_tree(as_t, v)) if isinstance(v, (dict, tuple, list))
+           else as_t(v) for k, v in opt.items()}
+    return packed, out
+
+
+def state_to_reference(cfg, packed: torch.Tensor, opt: dict):
+    """Inverse of :func:`state_from_reference`: -> ((C, N_total) NumPy
+    params, opt dict with each (C, N_total) moment unpacked into the
+    reference's client-stacked tree of NumPy arrays)."""
+    from repro_torch.core import packing
+
+    spec, tpl = _spec(cfg)
+    to_np = lambda x: x.detach().cpu().numpy()
+    out = {}
+    for k, v in opt.items():
+        if v.dim() == 2 and v.shape[1] == spec.n_total:
+            out[k] = map_tree(to_np, packing.unpack(spec, v, tpl))
+        else:
+            out[k] = to_np(v)
+    return to_np(packed), out
+

@@ -86,5 +86,15 @@ def unflatten(template: PyTree, flat: dict[str, Any], prefix: str = "") -> PyTre
     return flat[prefix[:-1]]
 
 
+def map_tree(fn, tree: PyTree) -> PyTree:
+    """Apply ``fn`` to every leaf of a tree of dicts, tuples and lists,
+    keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
 def count_params(template: PyTree) -> int:
     return sum(math.prod(info.shape) for _, info in flatten_with_paths(template))

@@ -14,7 +14,16 @@ Parity with the reference's ``forward``:
   permuting it to NCHW once at entry. Head outputs come back NHWC, shaped
   ``(B, S, S, A, 5 + C)`` like the reference's.
 
-``iou`` and ``yolo_loss`` belong to the training slice and are not ported yet.
+Training runs the functional :func:`forward` over the reference's HWIO
+param tree, whose leaves are views of one client's row of the packed
+``(C, N_total)`` round state (``core.packing.unpack_views``). Each view is
+permuted to OIHW inside the trunk, so autograd hands the gradient back
+straight into the packed layout: no per-step copy of the weights into a
+module and no pack of the gradients. The module and the functional form run
+one trunk (:func:`_trunk`).
+
+:func:`yolo_loss` is the paper's Eqs. 2-4, with the confidence target's IoU
+(:func:`iou`) outside the gradient as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +34,9 @@ from torch import nn
 from repro_torch.models import convert
 from repro_torch.models import params as mp
 from repro_torch.models.params import ParamInfo
+
+LAMBDA_COORD = 5.0  # the paper's pre-configured loss weights
+LAMBDA_NOOBJ = 0.5
 
 # anchor (w, h) priors per scale, normalized to image size
 ANCHORS = (
@@ -108,38 +120,58 @@ class FedYOLOv3(nn.Module):
     State keys mirror the reference's param paths with ``.`` for ``/``
     (``stages.0.down``), each an OIHW conv weight. Weights are drawn by
     :func:`~repro_torch.models.params.init_params` from ``generator`` (seed 0
-    when None), or carried in from the reference through
-    ``models.convert.from_reference`` + ``load_state_dict``.
+    when None), or given as ``weights``, an HWIO tree in the reference's
+    layout (NumPy arrays or tensors, e.g. views of a packed row), which is
+    also how ``models.convert.from_reference`` carries the reference's in.
     """
 
-    def __init__(self, cfg, generator: torch.Generator | None = None):
+    def __init__(self, cfg, generator: torch.Generator | None = None, *, weights=None):
         super().__init__()
         self.cfg = cfg
         t = template(cfg)
         self.stem = nn.Parameter(_oihw(t["stem"]))
         self.stages = nn.ModuleList(_Stage(s) for s in t["stages"])
         self.heads = nn.ParameterList(nn.Parameter(_oihw(h)) for h in t["heads"])
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.load_state_dict(convert.from_reference(mp.init_params(t, generator)))
+        if weights is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            weights = mp.init_params(t, generator)
+        with torch.no_grad():
+            self.load_state_dict(convert.from_reference(weights))
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         """images (B, H, W, 3) NHWC -> 3 raw head outputs (B, S, S, A, 5+C)."""
-        A, C = self.cfg.n_heads, self.cfg.vocab_size
-        x = images.permute(0, 3, 1, 2).contiguous()
-        x = F.leaky_relu(_conv(x, self.stem), 0.1)
-        feats = []
-        for st in self.stages:
-            x = F.leaky_relu(_conv(x, st.down, stride=2), 0.1)
-            h = F.leaky_relu(_conv(x, st.res1), 0.1)
-            x = x + F.leaky_relu(_conv(h, st.res2), 0.1)
-            feats.append(x)
-        outs = []
-        for f, head in zip(feats[-3:], self.heads):
-            o = _conv(f, head).permute(0, 2, 3, 1)
-            B, S1, S2, _ = o.shape
-            outs.append(o.reshape(B, S1, S2, A, 5 + C))
-        return outs
+        stages = [(st.down, st.res1, st.res2) for st in self.stages]
+        return _trunk(self.cfg, self.stem, stages, list(self.heads), images)
+
+
+def _trunk(cfg, stem, stages, heads, images: torch.Tensor) -> list[torch.Tensor]:
+    """The darknet trunk and heads over OIHW weights."""
+    A, C = cfg.n_heads, cfg.vocab_size
+    x = images.permute(0, 3, 1, 2).contiguous()
+    x = F.leaky_relu(_conv(x, stem), 0.1)
+    feats = []
+    for down, res1, res2 in stages:
+        x = F.leaky_relu(_conv(x, down, stride=2), 0.1)
+        h = F.leaky_relu(_conv(x, res1), 0.1)
+        x = x + F.leaky_relu(_conv(h, res2), 0.1)
+        feats.append(x)
+    outs = []
+    for f, head in zip(feats[-3:], heads):
+        o = _conv(f, head).permute(0, 2, 3, 1)
+        B, S1, S2, _ = o.shape
+        outs.append(o.reshape(B, S1, S2, A, 5 + C))
+    return outs
+
+
+def forward(params, images: torch.Tensor, cfg) -> list[torch.Tensor]:
+    """The reference's functional ``forward``: ``params`` is its HWIO tree
+    (``{"heads", "stages", "stem"}``) of tensors, images (B, H, W, 3) ->
+    3 raw head outputs (B, S, S, A, 5+C). Gradients flow back into the
+    tree's leaves (and through views into the buffer they view)."""
+    oihw = lambda w: w.permute(3, 2, 0, 1)
+    stages = [(oihw(st["down"]), oihw(st["res1"]), oihw(st["res2"])) for st in params["stages"]]
+    return _trunk(cfg, oihw(params["stem"]), stages, [oihw(h) for h in params["heads"]], images)
 
 
 def decode_boxes(raw: torch.Tensor, anchors):
@@ -154,3 +186,56 @@ def decode_boxes(raw: torch.Tensor, anchors):
     conf = torch.sigmoid(raw[..., 4])
     cls = torch.sigmoid(raw[..., 5:])
     return torch.cat([xy, wh], -1), conf, cls
+
+
+def iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Broadcasting IoU of (..., 4) center-format boxes (``yolov3.iou``).
+    Zero- and negative-area boxes score 0 against everything."""
+    ax1, ay1 = box_a[..., 0] - box_a[..., 2] * 0.5, box_a[..., 1] - box_a[..., 3] * 0.5
+    ax2, ay2 = box_a[..., 0] + box_a[..., 2] * 0.5, box_a[..., 1] + box_a[..., 3] * 0.5
+    bx1, by1 = box_b[..., 0] - box_b[..., 2] * 0.5, box_b[..., 1] - box_b[..., 3] * 0.5
+    bx2, by2 = box_b[..., 0] + box_b[..., 2] * 0.5, box_b[..., 1] + box_b[..., 3] * 0.5
+    ix = torch.clamp_min(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1), 0.0)
+    iy = torch.clamp_min(torch.minimum(ay2, by2) - torch.maximum(ay1, by1), 0.0)
+    inter = torch.clamp_min(ix * iy, 0.0)
+    area_a = torch.clamp_min((ax2 - ax1) * (ay2 - ay1), 0.0)
+    area_b = torch.clamp_min((bx2 - bx1) * (by2 - by1), 0.0)
+    union = area_a + area_b - inter
+    return inter / torch.clamp_min(union, 1e-9)
+
+
+def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 4) x (..., M, 4) -> (..., N, M) through :func:`iou`; the eval
+    path's pairwise IoU is the kernel ``kernels.ops.pairwise_iou``."""
+    return iou(boxes_a[..., :, None, :], boxes_b[..., None, :, :])
+
+
+def yolo_loss(params, batch: dict, cfg):
+    """Paper Eqs. 2-4 (``yolov3.yolo_loss``) -> (loss, metrics).
+
+    batch: {"images" (B, H, W, 3), "targets": per scale {"obj" (B,S,S,A),
+    "box" (B,S,S,A,4), "cls" (B,S,S,A,C)}}, tensors on the params' device.
+    """
+    outs = forward(params, batch["images"], cfg)
+    total = torch.zeros((), dtype=torch.float32, device=batch["images"].device)
+    metrics = {}
+    for s, (raw, anchors) in enumerate(zip(outs, ANCHORS)):
+        tgt = batch["targets"][s]
+        obj = tgt["obj"].float()
+        noobj = 1.0 - obj
+        boxes, conf, cls = decode_boxes(raw.float(), anchors)
+        # Eq. 2: class prediction loss on object cells
+        l_cls = torch.sum(obj[..., None] * (tgt["cls"] - cls) ** 2)
+        # Eq. 3: bounding-box coordinate loss
+        d = (tgt["box"] - boxes) ** 2
+        l_box = (LAMBDA_COORD * torch.sum(obj * (d[..., 0] + d[..., 1]))
+                 + LAMBDA_COORD * torch.sum(obj * (d[..., 2] + d[..., 3])))
+        # Eq. 4: confidence; theta = p(obj) * IoU(pred, gt), no gradient
+        theta = obj * iou(boxes, tgt["box"]).detach()
+        l_conf = (torch.sum(obj * (theta - conf) ** 2)
+                  + LAMBDA_NOOBJ * torch.sum(noobj * (theta - conf) ** 2))
+        total = total + l_cls + l_box + l_conf
+        metrics[f"scale{s}/cls"] = l_cls
+        metrics[f"scale{s}/box"] = l_box
+        metrics[f"scale{s}/conf"] = l_conf
+    return total / batch["images"].shape[0], metrics

@@ -1,12 +1,16 @@
-"""The port's NMS (``repro_torch.kernels``) held against the reference.
+"""The port's NMS (K3) and pairwise IoU (K2) (``repro_torch.kernels``)
+held against the reference.
 
 On the CPU the port's wrapper runs the plain PyTorch scan; both it and the
 forced plain version (``impl="ref"``) must equal the reference's Pallas
 ``nms`` (interpret mode) and its NumPy oracle ``ref.nms_np`` bit for bit
 (tolerance: none, compared as int32 bit patterns). The cases mirror
 tests/test_detect.py's NMS goldens and the cases ``chip_smoke.py`` holds the
-CUDA kernel to on the card. One case runs the CUDA kernel itself against the
-plain version; it needs a card and skips without one.
+CUDA kernel to on the card. The pairwise IoU's plain version must equal the
+reference's Pallas ``pairwise_iou`` (interpret mode) and its oracle
+``ref.pairwise_iou_np`` bit for bit too, IoU and GIoU, degenerate boxes
+included. The cases that run a CUDA kernel itself against its plain version
+need a card and skip without one.
 """
 import numpy as np
 import pytest
@@ -98,6 +102,7 @@ def test_unknown_impl_raises():
         ops.nms(torch.zeros(1, 4), torch.zeros(1), impl="fast")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_cuda_kernel_equals_plain_version_on_card(kind):
     if not torch.cuda.is_available():
@@ -111,3 +116,75 @@ def test_cuda_kernel_equals_plain_version_on_card(kind):
         assert torch.equal(kern.view(torch.int32), plain.view(torch.int32)), (B, N)
         np.testing.assert_array_equal(bits(kern.cpu().numpy()),
                                       bits(jref.nms_np(boxes, scores, iou, sthr, mk)))
+
+
+IOU_SHAPES = [(12, 64, 3), (1, 1, 1), (8, 128, 128), (4, 300, 7), (2, 1000, 1000)]
+IOU_KINDS = ["random", "degenerate"]
+
+
+def make_iou_case(kind: str, B: int, N: int, M: int, seed: int = 0):
+    """-> (a (B, N, 4), b (B, M, 4)) f32 center-format boxes. ``degenerate``
+    sets zero widths, zero heights and negative extents on a share of both
+    sets and repeats a-boxes in b (IoU exactly 1)."""
+    rng = np.random.default_rng(seed)
+
+    def boxes(n):
+        return np.concatenate([rng.uniform(0.1, 0.9, (B, n, 2)), rng.uniform(0.02, 0.5, (B, n, 2))], -1)
+
+    a, b = boxes(N), boxes(M)
+    if kind == "degenerate":
+        for x in (a, b):
+            x[:, 0::3, 2] = 0.0
+            x[:, 1::4, 2:] *= -1.0
+            x[:, 2::5, 3] = 0.0
+        k = min(N, M) // 2
+        b[:, :k] = a[:, :k]
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("giou", [False, True])
+@pytest.mark.parametrize("kind", IOU_KINDS)
+@pytest.mark.parametrize("B,N,M", IOU_SHAPES[:4])
+def test_plain_pairwise_iou_bit_for_bit_with_reference(B, N, M, kind, giou):
+    a, b = make_iou_case(kind, B, N, M)
+    oracle = jref.pairwise_iou_np(a, b, giou=giou)
+    pallas = jdetect.pairwise_iou(jnp.asarray(a), jnp.asarray(b), giou=giou, interpret=True)
+    np.testing.assert_array_equal(bits(pallas), bits(oracle))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    before = detect.pairwise_iou.launches
+    for impl in ops.IMPLS:
+        out = ops.pairwise_iou(ta, tb, giou=giou, impl=impl)
+        assert out.shape == (B, N, M)
+        np.testing.assert_array_equal(bits(out.numpy()), bits(oracle), err_msg=impl)
+    assert detect.pairwise_iou.launches == before  # the CPU takes the plain version
+    if kind == "degenerate" and not giou:
+        assert (out[:, 0::3].numpy() == 0).all()  # zero-width a-boxes score 0
+
+
+def test_plain_pairwise_iou_unbatched_and_large():
+    """(N, 4) x (M, 4) without a batch dim, and the largest card case."""
+    a, b = make_iou_case("random", 1, 37, 5)
+    out = ops.pairwise_iou(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+    np.testing.assert_array_equal(bits(out.numpy()), bits(jref.pairwise_iou_np(a[0], b[0])))
+    B, N, M = IOU_SHAPES[-1]
+    a, b = make_iou_case("degenerate", B, N, M)
+    for giou in (False, True):
+        out = ops.pairwise_iou(torch.from_numpy(a), torch.from_numpy(b), giou=giou)
+        np.testing.assert_array_equal(bits(out.numpy()), bits(jref.pairwise_iou_np(a, b, giou=giou)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", IOU_KINDS)
+def test_cuda_iou_kernel_equals_plain_version_on_card(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for B, N, M in IOU_SHAPES:
+        a, b = make_iou_case(kind, B, N, M)
+        ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        for giou in (False, True):
+            kern = ops.pairwise_iou(ta, tb, giou=giou)
+            plain = ops.pairwise_iou(ta, tb, giou=giou, impl="ref")
+            torch.cuda.synchronize()
+            assert torch.equal(kern.view(torch.int32), plain.view(torch.int32)), (B, N, M, giou)
+            np.testing.assert_array_equal(bits(kern.cpu().numpy()),
+                                          bits(jref.pairwise_iou_np(a, b, giou=giou)))
