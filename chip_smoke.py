@@ -7,7 +7,8 @@ hand-written kernels against their plain PyTorch versions.
 Phases, each a hard check (any failure exits non-zero, with no result line):
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of the three CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2)
+   of the seven CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
+   quant8 reduce K4, grouped reduce K6, quant4 reduce K7, masked sum K8)
    from ``src/repro_torch/kernels/csrc`` and its time.
 2. NMS kernel vs plain: the CUDA NMS scan against the plain PyTorch scan,
    both on the card, over six case kinds at (B, N) in (1, 1), (8, 16),
@@ -49,6 +50,30 @@ Phases, each a hard check (any failure exits non-zero, with no result line):
    ``InferenceService`` at the trained version with nothing dropped.
    Prints ms per round split into local training and aggregation (CUDA
    events), a profile of one round, and the loss and mAP trajectory.
+6. K4, K6, K7 and K8 vs plain, bitwise (tolerance: none): quant8 (K4) and
+   quant4 (K7, nearest and stochastic under two keys) at the quant8/quant4
+   round's (3, 13,312,864), the grouped reduce (K6) at hier's (4,
+   13,312,864) with G = 2, the masked sum (K8) at secure's padded (3,
+   13,313,024) with participation [1, 0, 1]; and ragged cases: N not a
+   multiple of 1024 or of 4, C above 8, C = 1, partial and empty
+   participation, rows at 0 and near 2^32. Kernel ms (CUDA events), device
+   ms (profiler), plain ms, the bound, and for K6 ``torch.bmm`` on the same
+   operands as the library yardstick.
+7. The uplink modes at full width. (a) One realistic buffer on the card
+   (the round-0 dispatch plus one local sgd step per client, 4 clients,
+   img 64): ``aggregate`` on the card (kernels) equals the same call on the
+   host (plain versions) bitwise for quant8, quant4 (stochastic), secure
+   (int8, masked), topk_ef (frac 0.1, quant4) and hier (C = 4, G = 2, over
+   dense), all with a client masked out; fedavgm, fedadam and trimmed_mean
+   at rtol 1e-6 / atol 1e-8 (their reductions and server steps may round
+   once differently on the card); secure with masks equals secure without,
+   and topk_ef's split recomposes its compensated delta, both bitwise on
+   the card. (b) The launcher's path per mode (quant8, quant4, secure,
+   topk_ef, hier over eq6 with 4 clients in groups of 2): img 416, batch 8,
+   sgd lr 1e-3, masked participation with a budget of 2, 3 rounds each;
+   finite losses, and per round one launch of K4 (quant8), K7 (quant4), K8
+   (secure), K1 (topk_ef), K6 and K1 (hier). Prints ms per round with the
+   aggregation timed alone, and the peak device memory.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -91,6 +116,26 @@ K1_RANDOM = [(4, 3000, 3), (3, 1024, 5), (2, 77, 2), (64, 1 << 20, 8)]
 IOU_SHAPES = [(12, 64, 3), (1, 1, 1), (8, 128, 128), (2, 1000, 1000), (4, 300, 7)]
 # phase 5b: the launcher's training run
 TRAIN_ROUNDS, TRAIN_EVAL_EVERY, TRAIN_CLIENTS, TRAIN_BATCH = 10, 5, 3, 8
+# phase 6: ragged (C, N, block) cases of K4/K7, (C, G, N) of K6, (C, N,
+# participation) of K8 beside the main path's shapes
+QUANT_RAGGED = [(9, 5001, 1024), (1, 77, 64), (6, 2500, 256), (2, 4096 * 3 + 8, 4096), (3, 1030, 1024)]
+QUANT4_KEYS = [("nearest", 0), ("stochastic", 12345), ("stochastic", 2 ** 32 - 1)]
+GROUPED_RAGGED = [(32, 8, 2101), (9, 3, 77), (2, 1, 1000), (4, 4, 1003), (12, 2, 4099)]
+MASKED_RAGGED = [(9, 5003, [1] * 9), (1, 64, [1]), (3, 10, [0, 0, 0]), (5, 4096, [0, 1, 1, 0, 1])]
+# phase 7: the uplink modes and their launcher runs
+UPLINK_ROUNDS = 3
+UPLINK_EXACT = [("quant8", {}), ("quant4", dict(quant4_mode="stochastic", quant4_seed=1)),
+                ("secure", dict(secure_domain="int8", secure_session=2)),
+                ("topk_ef", dict(topk_frac=0.1, topk_quant="quant4", quant4_mode="stochastic")),
+                ("hier", dict(n_clients=4, group_size=2, hier_base="dense"))]
+UPLINK_TOL = [("fedavgm", dict(server_lr=1.0)), ("fedadam", dict(server_lr=0.02)),
+              ("trimmed_mean", dict(trim_ratio=0.34))]
+UPLINK_RUNS = {"quant8": ([], {"quant8_reduce": 1}),
+               "quant4": ([], {"quant4_reduce": 1}),
+               "secure": ([], {"masked_u32_sum": 1}),
+               "topk_ef": ([], {"packed_bucket_reduce": 1}),
+               "hier": (["--clients", "4", "--group-size", "2", "--hier-base", "eq6"],
+                        {"grouped_reduce": 1, "packed_bucket_reduce": 1})}
 
 
 def fail(msg: str) -> None:
@@ -475,6 +520,268 @@ def profile_round(fn, card: str) -> None:
           + "; ".join(f"{k} {v:.3f} ms" for k, v in by_family.items()) + f"  [{card}]", flush=True)
 
 
+def quant_bound_ms(C: int, N: int) -> tuple[float, str]:
+    """K4/K7 read the (C, N) delta and (C,) weights once and write (N,); per
+    element and client about 9 f32 operations (abs, max, divide, round or
+    floor and add, two clips, two multiplies, one add) and, stochastic, 12
+    integer operations of the hash, counted at the f32 rate."""
+    return roofline(4 * (C * N + C + N), 21 * C * N)
+
+
+def grouped_bound_ms(C: int, G: int, N: int) -> tuple[float, str]:
+    """K6 reads (C, N) and the (C/G, G) weights once, writes (C/G, N); one
+    multiply and one add per element read."""
+    return roofline(4 * (C * N + C + (C // G) * N), 2 * C * N)
+
+
+def masked_bound_ms(part: list[float], N: int) -> tuple[float, str]:
+    """K8 reads (C,) participation and the N words of each participating row
+    once (a row that sits out is never read), writes (N,) words; one add per
+    word read."""
+    active = sum(p > 0 for p in part)
+    return roofline(4 * (active * N + len(part) + N), active * N)
+
+
+def phase6(dev, card: str) -> dict:
+    """K4, K6, K7 and K8 against their plain versions on the card, bitwise;
+    times and bounds at the main path's shapes. -> {kernel: fields}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops
+    from repro_torch.models import yolov3
+
+    cfg = get_arch("fedyolov3")
+    N = packing.build_pack_spec(cfg, yolov3.template(cfg)).n_total
+    n_pad = N + (-N) % 1024  # the padded row secure's K8 reduces
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def delta(C, n):
+        x = torch.randn((C, n), generator=g, device=dev) * 1e-3
+        x[:, ::97] = 0.0  # exact zeros, and a block of tiny values
+        x[0, :64] *= 1e-30
+        return x, torch.rand(C, generator=g, device=dev)
+
+    stats = {}
+
+    def hold(name, kern, plain, what):
+        k, p = kern(), plain()
+        torch.cuda.synchronize()
+        check(same_bits(k, p), f"{name} {what}: kernel != plain")
+        st = stats.setdefault(name, {"cases": 0, "max_abs_err": 0.0})
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], float((k.double() - p.double()).abs().max()))
+
+    def measure(name, kern, plain, bound, kernel_name, library=None):
+        st = stats[name]
+        st["ms"] = time_ms(kern)
+        st["plain_ms"] = time_ms(plain, reps=5, warmup=1)
+        st["device_ms"] = device_ms(kern, kernel_name)
+        st["bound_ms"], st["bound_by"] = bound
+        st["library_ms"] = time_ms(library) if library else None
+        lib = "" if library is None else f" library_ms={st['library_ms']:.4f}"
+        print(f"phase6 {name} main path: kernel_ms={st['ms']:.4f} device_ms={st['device_ms']} "
+              f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} ({st['bound_by']}){lib}; "
+              f"{st['cases']} cases bitwise-equal  [{card}]", flush=True)
+
+    # -- K4 and K7: the quant8 / quant4 round's (3, N), then ragged cases
+    for C, n, block in [(3, N, 1024), *QUANT_RAGGED]:
+        x, w = delta(C, n)
+        what = f"C={C} N={n} block={block}"
+        hold("quant8_reduce", lambda: ops.quant8_reduce(x, w, block=block),
+             lambda: ops.quant8_reduce(x, w, block=block, impl="ref"), what)
+        for mode, key in QUANT4_KEYS:
+            hold("quant4_reduce", lambda: ops.quant4_reduce(x, w, key, mode=mode, block=block),
+                 lambda: ops.quant4_reduce(x, w, key, mode=mode, block=block, impl="ref"),
+                 f"{what} {mode} key={key}")
+        if n == N:
+            main_x, main_w = x, w
+    measure("quant8_reduce", lambda: ops.quant8_reduce(main_x, main_w),
+            lambda: ops.quant8_reduce(main_x, main_w, impl="ref"), quant_bound_ms(3, N),
+            "quant_reduce_kernel")
+    k7_nearest = time_ms(lambda: ops.quant4_reduce(main_x, main_w, 0, mode="nearest"))
+    measure("quant4_reduce", lambda: ops.quant4_reduce(main_x, main_w, 12345, mode="stochastic"),
+            lambda: ops.quant4_reduce(main_x, main_w, 12345, mode="stochastic", impl="ref"),
+            quant_bound_ms(3, N), "quant_reduce_kernel")
+    print(f"phase6 quant4_reduce nearest at the main path: kernel_ms={k7_nearest:.4f}  [{card}]",
+          flush=True)
+
+    # -- K6: hier's (4, N) with G = 2, then ragged cases
+    for C, G, n in [(4, 2, N), *GROUPED_RAGGED]:
+        x = torch.randn((C, n), generator=g, device=dev)
+        wn = torch.rand((C // G, G), generator=g, device=dev)
+        hold("grouped_reduce", lambda: ops.grouped_reduce(x, wn),
+             lambda: ops.grouped_reduce(x, wn, impl="ref"), f"C={C} G={G} N={n}")
+        if n == N:
+            gx, gwn = x, wn
+    bmm = torch.bmm(gwn.view(2, 1, 2), gx.view(2, 2, N)).view(2, N)
+    torch.cuda.synchronize()
+    print(f"phase6 grouped_reduce vs torch.bmm: max abs diff "
+          f"{float((bmm - ops.grouped_reduce(gx, gwn)).abs().max()):.3e} (yardstick only)", flush=True)
+    measure("grouped_reduce", lambda: ops.grouped_reduce(gx, gwn),
+            lambda: ops.grouped_reduce(gx, gwn, impl="ref"), grouped_bound_ms(4, 2, N),
+            "grouped_reduce_kernel",
+            library=lambda: torch.bmm(gwn.view(2, 1, 2), gx.view(2, 2, N)))
+
+    # -- K8: secure's padded (3, N) with [1, 0, 1], ragged cases, ring edges
+    edges = torch.tensor([0, 1, -1, -2, 2 ** 31 - 1, -2 ** 31, 5, -5], dtype=torch.int32, device=dev)
+    for C, n, part in [(3, n_pad, [1, 0, 1]), *MASKED_RAGGED, (4, 4097, [1, 1, 1, 1])]:
+        rows = torch.randint(-2 ** 31, 2 ** 31, (C, n), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        if n == 4097:  # words at 0 and next to 2^32 in every row: the sum wraps
+            rows = edges[torch.randint(0, len(edges), (C, n), generator=g, device=dev)]
+        pm = torch.tensor(part, dtype=torch.float32, device=dev)
+        hold("masked_u32_sum", lambda: ops.masked_u32_sum(rows, pm),
+             lambda: ops.masked_u32_sum(rows, pm, impl="ref"), f"C={C} N={n} part={part}")
+        if n == n_pad:
+            mrows, mpm = rows, pm
+    measure("masked_u32_sum", lambda: ops.masked_u32_sum(mrows, mpm),
+            lambda: ops.masked_u32_sum(mrows, mpm, impl="ref"), masked_bound_ms([1, 0, 1], n_pad),
+            "masked_sum_kernel")
+    return stats
+
+
+def phase7(dev, card: str) -> dict:
+    """The uplink modes at full width: (a) aggregate on the card against the
+    host, (b) the launcher's path per mode. -> main-path launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import packing, rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import mask as kmask
+    from repro_torch.kernels import pack, quant4
+    from repro_torch.launch import train
+    from repro_torch.models import yolov3
+    from repro_torch.models.params import map_tree
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- (a) one realistic buffer: the dispatch plus one local step each
+    fed = FedConfig(n_clients=4, aggregation="dense")
+    state = rounds.make_state(cfg, fed, sgd(1e-3), torch.Generator().manual_seed(0), dev)
+    x0 = state["params"].clone()
+    agg = rounds.make_aggregator(cfg, fed)
+    spec, tpl = agg.ctx.spec, agg.ctx.template
+    batch = rounds.to_device(next(detection_suite(cfg, fed, batch=2, img_size=64, pool_scenes=24)[0]),
+                             dev)
+    opt = sgd(1e-3)
+    ost = opt.init(state["params"])
+    for c in range(4):
+        row = state["params"][c]
+        flat = row.detach().requires_grad_(True)
+        loss, _ = yolov3.yolo_loss(packing.unpack_views(spec, flat, tpl),
+                                   map_tree(lambda t: t[c, 0], batch), cfg)
+        (grad,) = torch.autograd.grad(loss, flat)
+        with torch.no_grad():
+            opt.update(row, grad, {k: v[c] for k, v in ost.items()})
+    x = state["params"].detach().clone()
+    N = x.shape[1]
+    print(f"phase7a buffer (4, {N}): dispatch + one sgd step per client, |delta| max "
+          f"{float((x - x0).abs().max()):.3e}  [{card}]", flush=True)
+
+    def operands(C, where):
+        mask = torch.tensor([1.0, 0.0] + [1.0] * (C - 2), device=where)
+        w = mask / mask.sum()
+        return x[:C].to(where), x0[:C].to(where), w, mask
+
+    def run(mode, kw, where):
+        C = kw.get("n_clients", 3)
+        f = FedConfig(aggregation=mode, agg_impl="kernel", **{"n_clients": C, **kw})
+        a = rounds.make_aggregator(cfg, f)
+        xs, x0s, w, mask = operands(C, where)
+        t0 = time.perf_counter()
+        out, st = a.aggregate(xs.clone(), w, a.init_state(x0s), mask)
+        torch.cuda.synchronize()
+        return a, out, st, time.perf_counter() - t0
+
+    def leaves(st, prefix=""):
+        for k, v in sorted(st.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + "/")
+            elif isinstance(v, torch.Tensor):
+                yield prefix + k, v
+
+    for mode, kw in UPLINK_EXACT + UPLINK_TOL:
+        _, out_c, st_c, tc = run(mode, kw, dev)
+        _, out_h, st_h, th = run(mode, kw, torch.device("cpu"))
+        pairs = [("out", out_c.cpu(), out_h)] + [
+            (k, a.cpu(), b) for (k, a), (_, b) in zip(leaves(st_c), leaves(st_h))]
+        check(all(torch.isfinite(a).all() for _, a, _ in pairs if a.is_floating_point()),
+              f"{mode}: non-finite aggregate")
+        gap = max(float((a.double() - b.double()).abs().max()) for _, a, b in pairs)
+        if (mode, kw) in UPLINK_EXACT:
+            for name, a, b in pairs:
+                check(same_bits(a, b), f"{mode}: card {name} != host {name} (max gap {gap:.3e})")
+            held = "bitwise-equal"
+        else:
+            for name, a, b in pairs:
+                check(torch.allclose(a, b, rtol=1e-6, atol=1e-8),
+                      f"{mode}: card {name} != host {name} at rtol 1e-6 / atol 1e-8 (gap {gap:.3e})")
+            held = "rtol 1e-6 / atol 1e-8"
+        print(f"phase7a {mode:12s} {kw}: card == host ({held}; max abs gap {gap:.3e}); "
+              f"card {tc * 1e3:.1f} ms host {th * 1e3:.1f} ms  [{card}]", flush=True)
+
+    # the two invariants, on the card
+    outs = [run("secure", dict(secure_domain="int8", secure_mask=m, secure_session=2), dev)[1]
+            for m in (True, False)]
+    check(same_bits(outs[0], outs[1]), "secure: masked != unmasked on the card")
+    a = run("topk_ef", dict(topk_frac=0.1), dev)[0]
+    xs, x0s, _, _ = operands(3, dev)
+    acc, sel, up, residual = a.split(xs, a.init_state(x0s))
+    check(same_bits(torch.where(sel, acc, residual), acc), "topk_ef: uploaded + residual != acc")
+    check(same_bits(residual, torch.where(sel, 0.0, acc)), "topk_ef: residual != unselected acc")
+    print(f"phase7a secure masked == unmasked bitwise; topk_ef uploaded + residual == acc bitwise "
+          f"({int(sel.sum())} of {sel.numel()} selected)  [{card}]", flush=True)
+    del state, ost, x, x0, batch, outs, acc, sel, up, residual
+    print(f"phase7a peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  [{card}]",
+          flush=True)
+
+    # -- (b) the launcher's path per mode
+    counters = {"quant8_reduce": pack.quant8_reduce, "quant4_reduce": quant4.quant4_reduce,
+                "masked_u32_sum": kmask.masked_u32_sum, "grouped_reduce": pack.grouped_reduce,
+                "packed_bucket_reduce": pack.packed_bucket_reduce}
+    main_launches = {}
+    for mode, (extra, per_round) in UPLINK_RUNS.items():
+        args = train.build_parser().parse_args([
+            "--task", "detection", "--full-size", "--device", str(dev), "--img-size", str(IMG),
+            "--clients", str(TRAIN_CLIENTS), "--participation", "masked", "--max-participants", "2",
+            "--fairness-rounds", "3", "--agg", mode, "--optimizer", "sgd", "--lr", "1e-3",
+            "--local-steps", "1", "--batch", str(TRAIN_BATCH), "--rounds", str(UPLINK_ROUNDS), *extra,
+        ])
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        run_ = train.train_detection(args, log=lambda m: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        server = run_.server
+        losses = [r.loss for r in server.history]
+        check(len(losses) == UPLINK_ROUNDS and all(np.isfinite(losses)), f"{mode}: losses {losses}")
+        for k, n in per_round.items():
+            check(launches[k] == n * UPLINK_ROUNDS,
+                  f"{mode}: {k} launched {launches[k]} times in {UPLINK_ROUNDS} rounds")
+            main_launches[k] = main_launches.get(k, 0) + launches[k]
+        main_launches[f"{mode}_rounds"] = UPLINK_ROUNDS
+        # where a round's time goes: the round, and the aggregation alone
+        gen, _, _ = detection_suite(cfg, server.fed, batch=TRAIN_BATCH, img_size=IMG, seed=1)
+        nxt = next(gen)
+        round_ms = time_ms(lambda: server.run_round(nxt), reps=3, warmup=1)
+        C = server.fed.n_clients
+        mask = torch.tensor([1.0, 0.0] + [1.0] * (C - 2), device=dev)
+        scratch = server.state["params"].clone()
+        agg_ms = time_ms(lambda: server.aggregator.aggregate(scratch, mask / mask.sum(),
+                                                             server.state["agg"], mask), reps=10)
+        print(f"phase7b {mode:8s} {' '.join(extra) or '--clients 3'}: {UPLINK_ROUNDS} rounds in "
+              f"{wall:.2f} s, loss {' '.join(f'{v:.3f}' for v in losses)}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; ms per round {round_ms:.3f}, "
+              f"aggregation alone {agg_ms:.3f}; peak device memory {peak:.2f} GiB  [{card}]", flush=True)
+    return main_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -670,6 +977,10 @@ def main() -> None:
     k_stats = phase4(dev, card)
     train_launches = phase5(dev, card)
 
+    # ---- phases 6 and 7: the uplink's kernels and its modes --------------
+    k_stats.update(phase6(dev, card))
+    uplink_launches = phase7(dev, card)
+
     kernels = [{
         "name": "nms_keep",
         "route": "cuda",
@@ -697,6 +1008,25 @@ def main() -> None:
             "launches": train_launches[kernel], "max_abs_err": st["max_abs_err"],
             "ms": st["ms"], "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
+            "cases": st["cases"],
+        })
+    for kernel, source, replaces, path in (
+        ("quant8_reduce", "src/repro_torch/kernels/csrc/quant_reduce.cu",
+         "src/repro/kernels/pack.py:285", "quant8"),
+        ("grouped_reduce", "src/repro_torch/kernels/csrc/grouped_reduce.cu",
+         "src/repro/kernels/pack.py:342", "hier"),
+        ("quant4_reduce", "src/repro_torch/kernels/csrc/quant_reduce.cu",
+         "src/repro/kernels/quant4.py:101", "quant4"),
+        ("masked_u32_sum", "src/repro_torch/kernels/csrc/masked_sum.cu",
+         "src/repro/kernels/mask.py:57", "secure"),
+    ):
+        st = k_stats[kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": uplink_launches[kernel], "main_path": f"--agg {path}, "
+            f"{uplink_launches[f'{path}_rounds']} rounds", "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"], "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": st["library_ms"],
             "cases": st["cases"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,16 @@
 """Pluggable aggregation strategies (port of ``repro/core/aggregators``).
 
-Importing this package registers the ported modes: dense | eq6 |
-static_topn. ``get(name)`` resolves a FedConfig aggregation name to its
-strategy class; ``names()`` lists what is available. The fedsgd topology,
-quant8, hier, the server optimizers, trimmed_mean and the communication
-frontier (topk_ef, quant4, secure) belong to later slices.
+Importing this package registers every stacked mode: dense | eq6 | quant8 |
+static_topn | fedavgm | fedadam | trimmed_mean, the two-level ``hier``
+composer, and the communication frontier topk_ef | quant4 | secure.
+``get(name)`` resolves a FedConfig aggregation name to its strategy class;
+``names()`` lists what is available. The fedsgd topology (one shared model
+copy) belongs to a later slice.
 """
 from repro_torch.core.aggregators.base import AggContext, Aggregator, get, names, register
-from repro_torch.core.aggregators import basic, eq6  # noqa: F401,E402 (registration)
+from repro_torch.core.aggregators import (  # noqa: F401,E402 (registration)
+    basic, eq6, hier, lowbit, quant, robust, secure, server_opt, sparse,
+)
 from repro_torch.core.aggregators.basic import static_layer_schedule
 
 __all__ = [

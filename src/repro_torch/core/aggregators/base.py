@@ -17,7 +17,12 @@ into it in place and returns it; nothing else may hold a private copy.
   numerically identical to ``None`` (a product with 1.0 is exact).
 
 ``FedConfig.agg_impl`` picks the reduction: ``"ref"`` plain torch,
-``"kernel"`` the K1 CUDA kernel (its plain version on the CPU).
+``"kernel"`` the CUDA kernels (K1, and K4, K6, K7 or K8 where a mode has
+one; their plain versions on the CPU).
+
+Cross-round state (a dispatched ``base`` row, error-feedback rows, server
+optimizer moments) never aliases the round buffer: the next round's local
+steps rewrite that buffer in place, so every row taken from it is a copy.
 """
 from __future__ import annotations
 
@@ -117,7 +122,7 @@ def get(name: str) -> type[Aggregator]:
     except KeyError:
         raise ValueError(
             f"unknown aggregation {name!r}; the port has: {sorted(_REGISTRY)} "
-            "(the other modes belong to a later slice)"
+            "(the fedsgd topology belongs to a later slice)"
         ) from None
 
 

@@ -1,0 +1,80 @@
+"""Hierarchical two-level aggregation over the packed buffer (port of the
+unsharded path of ``repro/core/aggregators/hier.py``).
+
+FedVision's deployment is many cameras behind a few edge servers: clients
+split into C/G contiguous edge groups of ``FedConfig.group_size`` G; each
+group reduces locally with a per-group renormalized weighted mean
+(``packing.grouped_weighted_mean``: one K6 launch under
+``agg_impl="kernel"``), then the registered ``FedConfig.hier_base`` reducer
+merges the (C/G, N) group rows as it would merge client rows. Group weights
+are the sums of their members' (mask-folded) weights, so the two-level
+dense mean IS the flat dense mean analytically:
+
+    sum_g (sum_i w_gi) [sum_i w_gi x_gi / sum_i w_gi] / sum_g sum_i w_gi
+  = sum_c w_c x_c / sum_c w_c                                     (Eq. 5)
+
+A group none of whose members took part reduces to a zero row with a zero
+group weight and is masked out of the outer reduce. Each group's dispatch
+row goes to all its members (the edge server redistributes).
+
+At ``G == 1`` and ``G == C`` hier delegates verbatim to the ``hier_base``
+aggregator over the full cohort: both are the flat path itself, bit for
+bit. Shard-local groups over a sharded client axis belong to the slice
+that shards it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core import packing
+from repro_torch.core.aggregators.base import AggContext, Aggregator, get, register
+
+
+@register
+class Hier(Aggregator):
+    name = "hier"
+
+    def __init__(self, ctx: AggContext):
+        super().__init__(ctx)
+        fed = ctx.fed
+        C = fed.n_clients
+        G = fed.group_size or C
+        if not 1 <= G <= C or C % G:
+            raise ValueError(f"hier: group_size={G} must divide n_clients={C} (and lie in [1, {C}])")
+        base = fed.hier_base
+        if base == "hier":
+            raise ValueError("hier: hier_base='hier' would recurse; name a flat reducer")
+        base_cls = get(base)  # build time: unknown names fail here
+        if not base_cls.stacked:
+            raise ValueError(
+                f"hier: hier_base={base!r} runs one shared model copy "
+                "(fedsgd topology); compose a client-stacked reducer"
+            )
+        self.group_size = G
+        self.ngroups = C // G
+        self._delegate = G in (1, C)
+        # the delegate sees the whole cohort; otherwise the outer reduce sees
+        # the C/G group rows as its clients
+        n_outer = C if self._delegate else self.ngroups
+        outer_fed = dataclasses.replace(fed, n_clients=n_outer, aggregation=base, group_size=0)
+        self._impl = base_cls(dataclasses.replace(ctx, fed=outer_fed))
+
+    def init_state(self, packed0):
+        if self._delegate:
+            return self._impl.init_state(packed0)
+        # one representative row per group (every client starts from one
+        # dispatch), copied out of the round buffer
+        return self._impl.init_state(packed0[:: self.group_size].clone())
+
+    def aggregate(self, packed, weights, agg_state, mask=None):
+        if self._delegate:
+            return self._impl.aggregate(packed, weights, agg_state, mask)
+        w = self._masked_weights(weights, mask)
+        rows, den = packing.grouped_weighted_mean(packed, w, self.group_size,
+                                                  impl=self.ctx.fed.agg_impl)
+        gmask = (den > 0).float()  # empty groups drop out
+        out_g, agg_state = self._impl.aggregate(rows, den, agg_state, gmask)
+        C, N = packed.shape
+        packed.view(self.ngroups, self.group_size, N).copy_(
+            out_g.to(packed.dtype)[:, None, :].expand(self.ngroups, self.group_size, N))
+        return packed, agg_state

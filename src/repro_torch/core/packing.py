@@ -221,6 +221,46 @@ def weighted_mean(packed: torch.Tensor, weights: torch.Tensor,
     return acc
 
 
+def grouped_weighted_mean(packed: torch.Tensor, weights: torch.Tensor, group_size: int,
+                          mask: torch.Tensor | None = None, *,
+                          impl: str = "ref") -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-group renormalized Eq. 5, the hierarchical inner reduce.
+
+    packed (C, N), weights (C,), C % group_size == 0 -> (rows (C/G, N) f32,
+    den (C/G,) f32) with ``rows[g] = sum_i w[gG+i] x[gG+i] / den[g]`` and
+    ``den[g] = sum_i w[gG+i]`` (mask folded in). A group nobody in took part
+    has den 0 and a zero row; ``aggregators/hier.py`` masks it out of the
+    outer reduce. The 1/den renormalization folds into the member weights.
+    ``impl="kernel"`` runs K6 (``kernels.pack.grouped_reduce``);
+    ``impl="ref"`` one multiply-add chain per group (one batched contraction
+    beyond CHAIN_MAX_CLIENTS members).
+    """
+    C, N = packed.shape
+    G = group_size
+    if G < 1 or C % G:
+        raise ValueError(f"group_size={G} must divide n_clients={C}")
+    ngroups = C // G
+    w = weights.float()
+    if mask is not None:
+        w = w * mask.float()
+    wg = w.reshape(ngroups, G)
+    den = torch.sum(wg, dim=1)  # (C/G,)
+    wn = wg / torch.clamp_min(den, 1e-12)[:, None]
+    if impl == "kernel":
+        from repro_torch.kernels import pack as kpack
+
+        return kpack.grouped_reduce(packed, wn.contiguous()), den
+    if impl != "ref":
+        raise ValueError(f"agg_impl={impl!r}; expected ref | kernel")
+    xg = packed.float().reshape(ngroups, G, N)
+    if G > CHAIN_MAX_CLIENTS:
+        return torch.einsum("gi,gin->gn", wn, xg), den
+    acc = xg[:, 0] * wn[:, 0][:, None]
+    for i in range(1, G):
+        acc = acc + xg[:, i] * wn[:, i][:, None]
+    return acc, den
+
+
 def masked_bucket_mean(
     packed: torch.Tensor,
     wmask: torch.Tensor,
@@ -271,3 +311,192 @@ def masked_bucket_mean(
         parts.append(acc.reshape(nb * per))
     g = parts[0] if len(parts) == 1 else torch.cat(parts)
     return g, den_b
+
+
+# ---------------------------------------------------------------------------
+# quant8 transport: fused encode -> decode -> reduce (no int8 payload)
+# ---------------------------------------------------------------------------
+
+def dequant_blocks(xb: torch.Tensor, q_max: float, u: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., nb, block) f32 -> dequant(quant(xb)) per block, symmetric with
+    ``scale = max(amax, 1e-12) / q_max``. ``u`` None: nearest,
+    ``clip(round(x/s))`` (half to even); else stochastic,
+    ``clip(floor(x/s + u))``, clipped AFTER the floor (7 + u can round to
+    8.0 in f32). Every op is one IEEE rounding, so the CUDA kernels
+    (``kernels/csrc/quant_reduce.cu``) reproduce it bit for bit."""
+    amax = torch.amax(torch.abs(xb), dim=-1)
+    scale = exact_div(torch.clamp_min(amax, 1e-12), q_max)
+    v = xb / scale[..., None]
+    q = torch.round(v) if u is None else torch.floor(v + u)
+    q = torch.clamp(q, -q_max, q_max)
+    return q * scale[..., None]
+
+
+def exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as one IEEE division on every device: torch on CUDA turns a
+    division by a Python scalar into a multiply by its rounded reciprocal,
+    which is not bit-equal; a 0-d tensor divisor on x's device is not."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def _pad_cols(x: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:
+    pad = (-x.shape[-1]) % block
+    return (torch.nn.functional.pad(x, (0, pad)) if pad else x), pad
+
+
+def quant_mean(delta: torch.Tensor, weights: torch.Tensor, block: int, q_max: float,
+               key: int | None = None, chain_max: int = CHAIN_MAX_CLIENTS) -> torch.Tensor:
+    """sum_c w_c dequant(quant(delta_c)) per ``block``-element scale block:
+    (C, N), (C,) -> (N,) f32 with no payload and no (C, N) dequant buffer
+    materialized. ``key`` None rounds to nearest, else stochastically from
+    the counter hash over the global (client, element) index of the padded
+    row. The clients are one ordered chain ``acc = d_0 w_0``, then
+    ``acc = acc + d_c w_c`` (the CUDA kernels' order), or one contraction
+    beyond ``chain_max`` clients. Weights are used as-is; fold the
+    participation mask in first."""
+    C, N = delta.shape
+    x, pad = _pad_cols(delta.float(), block)
+    w = weights.float()
+    nidx = torch.arange(N + pad, dtype=torch.int64, device=delta.device)
+
+    def dq(c):
+        u = None if key is None else counter_uniform(key, c, nidx).reshape(-1, block)
+        return dequant_blocks(x[c].reshape(-1, block), q_max, u).reshape(-1)
+
+    if C > chain_max:
+        acc = w @ torch.stack([dq(c) for c in range(C)])
+    else:
+        acc = dq(0) * w[0]
+        for c in range(1, C):
+            acc = acc + dq(c) * w[c]
+    return acc[:N] if pad else acc
+
+
+def quant8_mean_ref(delta: torch.Tensor, weights: torch.Tensor, block: int) -> torch.Tensor:
+    """Fused quant8 encode -> reduce (|q| <= 127 is exact in f32, so this IS
+    the int8 round trip): :func:`quant_mean` with Q = 127."""
+    return quant_mean(delta, weights, block, 127.0)
+
+
+# ---------------------------------------------------------------------------
+# communication frontier: counter PRNG, 4-bit transport, pairwise integer
+# masks. The uint32 hash runs in int64 masked to 32 bits (torch has no
+# uint32 shift on the CPU); every product is split so it stays below 2^49.
+# ---------------------------------------------------------------------------
+
+U32 = 0xFFFFFFFF
+FMIX_C1 = 0x85EBCA6B
+FMIX_C2 = 0xC2B2AE35
+GOLDEN = 0x9E3779B9
+IDX_C = 0x9E3779B1
+IDX_N = 0x85EBCA77
+IDX_E = 0xC2B2AE3D
+
+
+def mul32(h, c: int):
+    """(h * c) mod 2^32 for h in [0, 2^32) (int64 tensor or Python int) and
+    a constant c: the high 16 bits of c contribute only their product's low
+    16 bits, shifted, so no intermediate exceeds 2^49."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & U32
+
+
+def fmix32(h):
+    """murmur3 fmix32 over uint32 values held in int64 (tensor or Python
+    int); the bits of ``ref.fmix32_np``."""
+    h = h & U32
+    h = h ^ (h >> 16)
+    h = mul32(h, FMIX_C1)
+    h = h ^ (h >> 13)
+    h = mul32(h, FMIX_C2)
+    return h ^ (h >> 16)
+
+
+def round_key(seed: int, round_idx: int) -> int:
+    """Per-round PRNG key ``fmix32(seed ^ fmix32(round + GOLDEN))`` as a
+    Python int in [0, 2^32): computed on the host from the round counter,
+    so it reaches a kernel as a launch argument with no device sync."""
+    return fmix32((seed & U32) ^ fmix32(((round_idx & U32) + GOLDEN) & U32))
+
+
+def counter_uniform(key: int, c_idx, n_idx) -> torch.Tensor:
+    """u in [0, 1) f32 for (client, element) counters (int64 tensors or
+    ints, broadcast): the 24 high bits of fmix32(key + c*IDX_C + n*IDX_N),
+    times 2^-24 (both steps exact in f32)."""
+    bits = fmix32(key + mul32(c_idx, IDX_C) + mul32(n_idx, IDX_N))
+    return (bits >> 8).float() * 2.0 ** -24
+
+
+def quant4_dequant_rows_ref(x: torch.Tensor, block: int, key: int = 0,
+                            mode: str = "nearest") -> torch.Tensor:
+    """(C, N) -> (C, N) f32 dequant(quant4(x)) per client row: what a client
+    uploads under 4-bit transport (the topk_ef x quant4 composition). The
+    stochastic counters cover the padded row, client c at row c."""
+    C, N = x.shape
+    xp, pad = _pad_cols(x.float(), block)
+    u = None
+    if mode == "stochastic":
+        cidx = torch.arange(C, dtype=torch.int64, device=x.device)[:, None]
+        nidx = torch.arange(N + pad, dtype=torch.int64, device=x.device)[None, :]
+        u = counter_uniform(key, cidx, nidx).reshape(C, -1, block)
+    elif mode != "nearest":
+        raise ValueError(f"quant4 mode={mode!r}; expected nearest | stochastic")
+    return dequant_blocks(xp.reshape(C, -1, block), 7.0, u).reshape(C, -1)[:, :N]
+
+
+def quant4_mean_ref(delta: torch.Tensor, weights: torch.Tensor, block: int, key: int = 0,
+                    mode: str = "nearest") -> torch.Tensor:
+    """Fused 4-bit encode -> reduce (quant8_mean_ref's sibling):
+    :func:`quant_mean` with Q = 7, rounding ``mode`` nearest or stochastic
+    under ``key``."""
+    if mode not in ("nearest", "stochastic"):
+        raise ValueError(f"quant4 mode={mode!r}; expected nearest | stochastic")
+    return quant_mean(delta, weights, block, 7.0, key if mode == "stochastic" else None)
+
+
+def secure_client_masks(rk: int, participation: torch.Tensor, n: int) -> torch.Tensor:
+    """(C,) 0/1 participation -> (C, n) int64 pairwise-mask sums in
+    [0, 2^32).
+
+    Client c carries sum_{p>c} m_cp - sum_{p<c} m_pc over ACTIVE pairs (both
+    endpoints selected), mod 2^32, so the masks cancel exactly in the active
+    rows' modular sum. The stream of pair (a < b) is
+    ``fmix32(pair_key + n * IDX_E)``; it is drawn once and added to a and
+    subtracted from b (the modular sum is the reference's per-client loop
+    in another order, bit for bit). Selection stays on the device: an
+    inactive pair adds 0."""
+    act = (participation.float() > 0).to(torch.int64)
+    C = act.shape[0]
+    nidx = torch.arange(n, dtype=torch.int64, device=participation.device)
+    en = mul32(nidx, IDX_E)
+    M = torch.zeros((C, n), dtype=torch.int64, device=participation.device)
+    for a in range(C):
+        for b in range(a + 1, C):
+            pk = fmix32(fmix32(rk + mul32(a, IDX_C)) ^ mul32(b, IDX_N))
+            bits = fmix32(pk + en) * (act[a] * act[b])
+            M[a] = (M[a] + bits) & U32
+            M[b] = (M[b] - bits) & U32
+    return M
+
+
+def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 tensor with the same 32 bits
+    (no reliance on a wrapping cast)."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def secure_masked_rows(q: torch.Tensor, participation: torch.Tensor, rk: int) -> torch.Tensor:
+    """q (C, N) int32 -> (C, N) int32 bits of each row plus its pairwise
+    masks, mod 2^32: what each client uploads."""
+    masks = secure_client_masks(rk, participation, q.shape[1])
+    return to_int32_bits((q.to(torch.int64) + masks) & U32)
+
+
+def secure_sum_ref(q: torch.Tensor, participation: torch.Tensor, rk: int, *,
+                   use_masks: bool = True) -> torch.Tensor:
+    """q (C, N) int32 -> (N,) int32 sum over participating rows, optionally
+    through pairwise masking; bitwise equal either way (the masks cancel in
+    the modular sum)."""
+    act = participation.float() > 0
+    rows = secure_masked_rows(q, participation, rk) if use_masks else q
+    total = torch.sum(torch.where(act[:, None], rows.to(torch.int64) & U32, 0), dim=0) & U32
+    return to_int32_bits(total)

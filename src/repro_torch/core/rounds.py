@@ -20,8 +20,9 @@ Participation comes from the Task Scheduler as NumPy (``participation_input``):
 ``full`` trains every client; ``masked`` trains only the clients with
 ``mask[c] == 1``, the others keep their params and optimizer rows untouched
 and report loss 0. Either way the mask, when given, rides into the
-aggregation and the mean loss (a bare weight vector means mask ``None``). Compact participation, the tree layout, the fedsgd topology
-and mesh sharding belong to later slices and raise ``NotImplementedError``.
+aggregation and the mean loss (a bare weight vector means mask ``None``).
+Compact participation, the fedsgd topology and the sharded client axis
+(slice 3b), and the tree layout (slice 9) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ class FedConfig:
     data_axis: str | None = "data"  # within-client data-parallel axis
     round_idx_static: int = 0  # static_topn: trace-time round phase
     microbatches: int = 1  # grad-accumulation splits of each local step
-    agg_impl: str = "ref"  # ref (plain torch) | kernel (the K1 CUDA kernel)
+    agg_impl: str = "ref"  # ref (plain torch) | kernel (the K1, K4, K6, K7, K8 CUDA kernels)
     quant_block: int = 1024  # quant8: elements per int8 scale block
     server_lr: float = 1.0  # fedavgm/fedadam server step (fedadam wants ~0.01-0.1)
     server_momentum: float = 0.9  # fedavgm momentum / fedadam b1
@@ -118,9 +119,11 @@ def _check_ported(fed: FedConfig) -> None:
     if fed.state_layout != "flat":
         raise ValueError(f"unknown state_layout {fed.state_layout!r}; expected flat|tree")
     if fed.aggregation == "fedsgd":
-        raise NotImplementedError("the fedsgd topology is ported in slice 3")
+        raise NotImplementedError("the fedsgd topology is ported in slice 3b "
+                                  "(with compact participation and the sharded client axis)")
     if fed.participation == "compact":
-        raise NotImplementedError("compact participation is ported in slice 3")
+        raise NotImplementedError("compact participation is ported in slice 3b "
+                                  "(with the fedsgd topology and the sharded client axis)")
     if fed.participation not in ("full", "masked"):
         raise ValueError(f"unknown participation {fed.participation!r}; expected full|masked|compact")
     if fed.microbatches != 1:
@@ -173,7 +176,8 @@ def participation_input(fed: FedConfig, mask, weights, idx=None) -> dict:
     the mask on the host to pick the clients that train, then moves both to
     its device)."""
     if fed.participation == "compact" or idx is not None:
-        raise NotImplementedError("compact participation is ported in slice 3")
+        raise NotImplementedError("compact participation is ported in slice 3b "
+                                  "(with the fedsgd topology and the sharded client axis)")
     return {
         "mask": torch.as_tensor(np.asarray(mask, np.float32)),
         "weights": torch.as_tensor(np.asarray(weights, np.float32)),
@@ -207,7 +211,8 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
     "client_loss": (C,)}``, tensors on the device (no host sync).
     """
     if mesh is not None:
-        raise NotImplementedError("mesh sharding of the client axis is ported in slice 3")
+        raise NotImplementedError("the sharded client axis (torch.distributed; K5a/K5b, sharded "
+                                  "quant8, shard-local hier) is ported in slice 3b")
     if fed.mode != "sync":
         raise ValueError(
             f"build_fed_round builds the synchronous round (mode='sync'), got "

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels at first use.
 
 The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
-``iou.cu`` K2 and the shared ``errors.cu``) are compiled for ``sm_90a`` by
+``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``grouped_reduce.cu`` K6,
+``masked_sum.cu`` K8 and the shared ``errors.cu``) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -21,9 +22,12 @@ import functools
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "errors.cu")
+SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "quant_reduce.cu", "grouped_reduce.cu",
+           "masked_sum.cu", "errors.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false"]
 
 _lock = threading.Lock()
@@ -43,11 +47,18 @@ def _load_locked() -> ctypes.CDLL:
         verbose=False,
     )
     lib = ctypes.CDLL(path)
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.nms_keep_launch.argtypes = [p, p, p, i, i, f, p]
-    lib.packed_bucket_reduce_launch.argtypes = [p, p, p, p, p, p, i, ll, i, p]
-    lib.pairwise_iou_launch.argtypes = [p, p, p, i, i, i, i, p]
-    for fn in (lib.nms_keep_launch, lib.packed_bucket_reduce_launch, lib.pairwise_iou_launch):
+    p, i, f, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
+    argtypes = {
+        "nms_keep_launch": [p, p, p, i, i, f, p],
+        "packed_bucket_reduce_launch": [p, p, p, p, p, p, i, ll, i, p],
+        "pairwise_iou_launch": [p, p, p, i, i, i, i, p],
+        "quant_reduce_launch": [p, p, p, i, ll, i, f, i, u, p],
+        "grouped_reduce_launch": [p, p, p, i, i, ll, p],
+        "masked_u32_sum_launch": [p, p, p, i, ll, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
         fn.restype = i
     lib.kernel_error_string.argtypes = [i]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -64,3 +75,12 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if code:
         raise RuntimeError(f"{what} failed: {lib.kernel_error_string(code).decode()} (cudaError {code})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device`` as its last argument; raise on a non-zero ``cudaError_t``."""
+    lib = library()
+    with torch.cuda.device(device):
+        code = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    check(lib, code, name)

@@ -49,12 +49,8 @@ def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor, *, giou: bool = F
         raise ValueError(f"B={B}, N={N} exceed the kernel's grid")
     boxes_a, boxes_b = boxes_a.contiguous(), boxes_b.contiguous()
     out = torch.empty((B, N, M), dtype=torch.float32, device=boxes_a.device)
-    lib = _build.library()
-    with torch.cuda.device(boxes_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pairwise_iou_launch(boxes_a.data_ptr(), boxes_b.data_ptr(), out.data_ptr(),
-                                       B, N, M, int(giou), stream)
-    _build.check(lib, code, "pairwise_iou launch")
+    _build.launch("pairwise_iou_launch", boxes_a.device, boxes_a.data_ptr(), boxes_b.data_ptr(),
+                  out.data_ptr(), B, N, M, int(giou))
     pairwise_iou.launches += 1
     return out[0] if squeeze else out
 
@@ -81,12 +77,8 @@ def nms_keep(boxes_s: torch.Tensor, valid_s: torch.Tensor, iou_thresh: float) ->
     boxes_s, valid_s = boxes_s.contiguous(), valid_s.contiguous()
     keep = torch.empty_like(valid_s)
     B, N = valid_s.shape
-    lib = _build.library()
-    with torch.cuda.device(boxes_s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.nms_keep_launch(boxes_s.data_ptr(), valid_s.data_ptr(), keep.data_ptr(),
-                                   B, N, float(iou_thresh), stream)
-    _build.check(lib, code, "nms_keep launch")
+    _build.launch("nms_keep_launch", boxes_s.device, boxes_s.data_ptr(), valid_s.data_ptr(),
+                  keep.data_ptr(), B, N, float(iou_thresh))
     nms_keep.launches += 1
     return keep
 

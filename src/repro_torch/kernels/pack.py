@@ -1,5 +1,5 @@
 """Packed-buffer kernels (port of ``repro/kernels/pack.py``): the bucket
-reduce K1.
+reduce K1, the fused quant8 transport K4 and the grouped reduce K6.
 
 :func:`packed_bucket_reduce` is the reduction every dense, eq6 and
 static_topn round runs under ``FedConfig.agg_impl="kernel"``
@@ -7,8 +7,11 @@ static_topn round runs under ``FedConfig.agg_impl="kernel"``
 the hand-written CUDA kernel ``csrc/bucket_reduce.cu``; for a tensor on the
 CPU it runs the plain version ``kernels.ref.packed_bucket_reduce``. A CUDA
 tensor never takes the plain version: the kernel launches or the call
-raises. The quant8, row-quantisation and grouped kernels belong to a later
-slice.
+raises. :func:`quant8_reduce` (``csrc/quant_reduce.cu``) is quant8's one
+launch per round and :func:`grouped_reduce` (``csrc/grouped_reduce.cu``)
+hier's inner reduce, under the same rule. The row quantization kernels
+(``quantize_rows``, ``dequantize_rows``) serve only the sharded quant8
+transport and belong to the slice that shards the client axis.
 """
 from __future__ import annotations
 
@@ -50,15 +53,81 @@ def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: 
         raise ValueError(f"bucket ids span [{lo}, {hi}], outside [0, {wmask.shape[1]})")
     num = torch.empty(N, dtype=torch.float32, device=packed.device)
     den = torch.empty(N, dtype=torch.float32, device=packed.device)
-    lib = _build.library()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.packed_bucket_reduce_launch(
-            packed.data_ptr(), wmask.data_ptr(), bucket_ids.data_ptr(), mask.data_ptr(),
-            num.data_ptr(), den.data_ptr(), C, N, wmask.shape[1], stream)
-    _build.check(lib, code, "packed_bucket_reduce launch")
+    _build.launch("packed_bucket_reduce_launch", packed.device, packed.data_ptr(), wmask.data_ptr(),
+                  bucket_ids.data_ptr(), mask.data_ptr(), num.data_ptr(), den.data_ptr(), C, N,
+                  wmask.shape[1])
     packed_bucket_reduce.launches += 1
     return num, den
 
 
 packed_bucket_reduce.launches = 0
+
+
+# the CUDA kernel gives each thread at most 4 float4 chunks of a scale block
+MAX_QUANT_BLOCK = 4096
+
+
+def check_quant_operands(what: str, delta: torch.Tensor, weights: torch.Tensor, block: int) -> None:
+    """Validate the operands of a fused quantized reduce (K4, K7) on the card."""
+    if delta.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {delta.device}")
+    if delta.dim() != 2 or delta.shape[0] < 1 or weights.shape != (delta.shape[0],):
+        raise ValueError(f"expected delta (C, N) with C >= 1 and weights (C,), got "
+                         f"{tuple(delta.shape)} and {tuple(weights.shape)}")
+    if delta.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 delta and weights")
+    if weights.device != delta.device:
+        raise ValueError("delta and weights must be on one device")
+    if not (delta.is_contiguous() and weights.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous tensors")
+    if block < 4 or block % 4 or block > MAX_QUANT_BLOCK:
+        raise ValueError(f"{what}: block={block} must be a multiple of 4 in [4, {MAX_QUANT_BLOCK}]")
+
+
+def quant8_reduce(delta: torch.Tensor, weights: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
+    """delta (C, N) f32, weights (C,) f32 (participation folded in) -> (N,)
+    f32 ``sum_c w_c dequant(quant8(delta_c))``, one scale per ``block``
+    elements. Counts its CUDA launches in ``quant8_reduce.launches``."""
+    if delta.device.type == "cpu":
+        return ref.quant8_reduce(delta, weights, block)
+    check_quant_operands("quant8_reduce", delta, weights, block)
+    C, N = delta.shape
+    out = torch.empty(N, dtype=torch.float32, device=delta.device)
+    _build.launch("quant_reduce_launch", delta.device, delta.data_ptr(), weights.data_ptr(),
+                  out.data_ptr(), C, N, block, 127.0, 0, 0)
+    quant8_reduce.launches += 1
+    return out
+
+
+quant8_reduce.launches = 0
+
+
+def grouped_reduce(packed: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
+    """packed (C, N) f32, wn (C/G, G) f32 pre-normalized member weights ->
+    (C/G, N) f32 ``out[g] = sum_i wn[g, i] packed[gG + i]``. Counts its CUDA
+    launches in ``grouped_reduce.launches``."""
+    if packed.device.type == "cpu":
+        return ref.grouped_reduce(packed, wn)
+    if packed.device.type != "cuda":
+        raise ValueError(f"grouped_reduce runs on cuda or cpu tensors, not {packed.device}")
+    if packed.dim() != 2 or wn.dim() != 2 or wn.shape[0] * wn.shape[1] != packed.shape[0]:
+        raise ValueError(f"expected packed (C, N) and wn (C/G, G), got "
+                         f"{tuple(packed.shape)} and {tuple(wn.shape)}")
+    if packed.dtype != torch.float32 or wn.dtype != torch.float32:
+        raise TypeError("grouped_reduce takes float32 packed and wn")
+    if wn.device != packed.device:
+        raise ValueError("packed and wn must be on one device")
+    if not (packed.is_contiguous() and wn.is_contiguous()):
+        raise ValueError("grouped_reduce takes contiguous tensors")
+    ngroups, G = wn.shape
+    if ngroups > 65535:
+        raise ValueError(f"grouped_reduce takes at most 65535 groups, got {ngroups}")
+    N = packed.shape[1]
+    out = torch.empty((ngroups, N), dtype=torch.float32, device=packed.device)
+    _build.launch("grouped_reduce_launch", packed.device, packed.data_ptr(), wn.data_ptr(),
+                  out.data_ptr(), ngroups, G, N)
+    grouped_reduce.launches += 1
+    return out
+
+
+grouped_reduce.launches = 0

@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro/kernels/ref.py::nms_np``, ``pairwise_iou_np``, ``_corners_np`` and
-``packed_bucket_reduce``).
+``packed_bucket_reduce``, and of the fused transports K4, K6, K7, K8).
 
 The detection versions are straight transcriptions of the reference's
 NumPy oracles, op for op in float32: every op is a plain IEEE
 add/sub/mul/div/min/max, each rounded on its own, so on the host they equal
-the oracles bit for bit. :func:`packed_bucket_reduce` is the reference's
-oracle written as the CUDA kernel's ordered client chain, so kernel and
+the oracles bit for bit. :func:`packed_bucket_reduce`, :func:`quant8_reduce`,
+:func:`quant4_reduce`, :func:`grouped_reduce` and :func:`masked_u32_sum`
+are the reference's oracles written as the CUDA kernels' ordered client
+chains (``acc = d_0 w_0``, then ``acc = acc + d_c w_c``), so kernel and
 plain version agree bit for bit on the card. A wrapper in ``kernels.detect``
 or ``kernels.pack`` runs these for a tensor on the CPU; on the card they
 serve only as what ``chip_smoke.py`` and the tests hold the CUDA kernels
@@ -15,6 +17,8 @@ against.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import packing
 
 IOU_EPS = 1e-9
 
@@ -127,3 +131,44 @@ def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: 
         num = num + packed[c].float() * w
         den = den + w
     return num, den
+
+
+def quant8_reduce(delta: torch.Tensor, weights: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """K4's plain version: delta (C, N) f32, weights (C,) f32 -> (N,) f32
+    ``sum_c w_c (q_c * scale_c)``, ``scale = max(amax, 1e-12)/127`` per
+    ``block`` elements, ``q = clip(round(x/scale), -127, 127)``, the clients
+    one ordered chain whatever C (``packing.quant_mean``)."""
+    return packing.quant_mean(delta, weights, block, 127.0, chain_max=delta.shape[0])
+
+
+def quant4_reduce(delta: torch.Tensor, weights: torch.Tensor, key: int = 0,
+                  mode: str = "nearest", block: int = 1024) -> torch.Tensor:
+    """K7's plain version: K4 with ``scale = max(amax, 1e-12)/7``, clip to
+    +-7, and ``mode`` "nearest" (``round``) or "stochastic"
+    (``floor(x/scale + u)``, u from ``packing.counter_uniform(key, c, n)``)."""
+    if mode not in ("nearest", "stochastic"):
+        raise ValueError(f"quant4 mode={mode!r}; expected nearest | stochastic")
+    return packing.quant_mean(delta, weights, block, 7.0, key if mode == "stochastic" else None,
+                              chain_max=delta.shape[0])
+
+
+def grouped_reduce(packed: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:
+    """K6's plain version: packed (C, N) f32, wn (C/G, G) f32 -> (C/G, N) f32
+    ``out[g] = sum_i wn[g, i] x[gG + i]``, members summed in order."""
+    ngroups, G = wn.shape
+    xg = packed.float().reshape(ngroups, G, -1)
+    acc = xg[:, 0] * wn[:, 0][:, None]
+    for i in range(1, G):
+        acc = acc + xg[:, i] * wn[:, i][:, None]
+    return acc
+
+
+def masked_u32_sum(rows: torch.Tensor, participation: torch.Tensor) -> torch.Tensor:
+    """K8's plain version: rows (C, N) int32 holding uint32 bits,
+    participation (C,) f32 -> (N,) int32 bits of the sum mod 2^32 of the
+    rows with ``participation > 0``, clients in order."""
+    on = participation.float() > 0
+    acc = torch.zeros(rows.shape[1], dtype=torch.int64, device=rows.device)
+    for c in range(rows.shape[0]):
+        acc = (acc + torch.where(on[c], rows[c].to(torch.int64) & packing.U32, 0)) & packing.U32
+    return packing.to_int32_bits(acc)

@@ -5,19 +5,27 @@
   PYTHONPATH=src python -m repro_torch.launch.train --task detection --full-size \\
       --img-size 416 --clients 3 --participation masked --max-participants 2 \\
       --optimizer sgd --lr 1e-3 --topn 4 --batch 8 --eval-every 5 --store /tmp/cos
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
+      --rounds 2 --agg quant4
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
+      --rounds 2 --agg hier --clients 4 --group-size 2 --hier-base eq6
 
 Runs the paper's federated detection workload: FedYOLOv3 over a
 partitioned synthetic scene pool, the Task Scheduler and the Explorer's
-load model choosing participants, Eq. 6 aggregation through the K1 CUDA
-kernel (``agg_impl="kernel"``), COS checkpoints every 5 rounds with
+load model choosing participants, the ``--agg`` aggregation through the
+CUDA kernels (``agg_impl="kernel"``: K1 for dense, eq6, static_topn,
+topk_ef and the server optimizers, K4 for quant8, K7 for quant4, K8 for
+secure, K6 + the base's kernel for hier), COS checkpoints every 5 rounds with
 ``--store``, global and per-client mAP@0.5 every ``--eval-every`` rounds
 (IoU and NMS kernels). After the last round the global model is published
 to a ``ModelSlot`` and 4 synthetic frames are decoded through the serving
 plane's detection program: train -> evaluate -> serve. ``--device``
 defaults to ``cuda`` and never falls back to the CPU.
 
-The LM workload, ``--mode async``, ``--transport socket``, ``--restore`` and
-``--replay-schedule`` belong to later slices and raise.
+Every registered aggregator but the fedsgd topology is a ``--agg`` choice.
+The LM workload, ``--mode async``, ``--transport socket``, ``--restore``,
+``--replay-schedule`` and compact participation belong to later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -62,6 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--agg", default="eq6", choices=list(aggregators.names()))
+    ap.add_argument("--server-lr", type=float, default=None,
+                    help="fedavgm/fedadam server step (default: 1.0 for fedavgm, 0.02 for fedadam)")
+    ap.add_argument("--group-size", type=int, default=0,
+                    help="hier: clients per edge group (must divide --clients; "
+                    "1 or --clients delegates to the flat base bit for bit)")
+    ap.add_argument("--hier-base", default="dense",
+                    help="hier: the stacked aggregator composed over group rows")
     ap.add_argument("--topn", type=int, default=0)
     ap.add_argument("--mode", default="sync", choices=["sync", "async"])
     ap.add_argument("--transport", default="inproc", choices=["inproc", "socket"])
@@ -75,6 +90,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--partition", default="stream", choices=["stream", *partition.SCENARIOS],
                     help="client data split; stream means the iid control for detection")
     ap.add_argument("--alpha", type=float, default=0.5, help="dirichlet label-skew concentration")
+    ap.add_argument("--topk-frac", type=float, default=0.1,
+                    help="topk_ef: upload fraction k/N of the packed row")
+    ap.add_argument("--topk-quant", default="none", choices=["none", "quant4"],
+                    help="topk_ef: quantize the selected values to 4 bits")
+    ap.add_argument("--quant4-mode", default="stochastic", choices=["stochastic", "nearest", "skip"],
+                    help="quant4 rounding (skip -> dense bit for bit)")
+    ap.add_argument("--quant4-seed", type=int, default=0,
+                    help="quant4/topk_ef: per-round stochastic-rounding key seed")
+    ap.add_argument("--secure-domain", default="int8", choices=["int8", "int4"],
+                    help="secure: integer domain the masked sums run in")
+    ap.add_argument("--no-secure-mask", action="store_true",
+                    help="secure: skip the pairwise masks (the quantized sum only)")
+    ap.add_argument("--secure-session", type=int, default=0,
+                    help="secure: session key the per-round pair masks derive from")
     ap.add_argument("--batch", type=int, default=4, help="images per client per local step")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
@@ -108,6 +137,9 @@ def _check_ported(args) -> None:
         raise NotImplementedError("--mode async (the buffered engines) is slice 4")
     if args.task == "lm":
         raise NotImplementedError("--task lm (the LM family) is slice 7")
+    if args.agg != "hier" and (args.group_size or args.hier_base != "dense"):
+        raise ValueError("--group-size/--hier-base configure the hierarchical aggregator; "
+                         "pass --agg hier")
 
 
 def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
@@ -129,6 +161,19 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
         data_axis=None,
         participation=args.participation,
         agg_impl="kernel",
+        # fedadam's adaptive step is about server_lr per coordinate: it needs
+        # a small one out of the box
+        server_lr=args.server_lr if args.server_lr is not None else (
+            0.02 if args.agg == "fedadam" else 1.0),
+        group_size=args.group_size,
+        hier_base=args.hier_base,
+        topk_frac=args.topk_frac,
+        topk_quant=args.topk_quant,
+        quant4_mode=args.quant4_mode,
+        quant4_seed=args.quant4_seed,
+        secure_domain=args.secure_domain,
+        secure_mask=not args.no_secure_mask,
+        secure_session=args.secure_session,
     )
     optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
     store = ObjectStore(args.store) if args.store else None

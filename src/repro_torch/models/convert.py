@@ -12,7 +12,12 @@ uses it to read and write the reference's npz layout.
 round state across: the reference's ``state["params"]`` is already the
 packed ``(C, N_total)`` buffer in the port's layout, and its optimizer
 moments (client-stacked trees such as ``state["opt"]["mu"]``) pack into the
-port's ``(C, N_total)`` moment buffers.
+port's ``(C, N_total)`` moment buffers. :func:`agg_state_from_reference`
+and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
+(``base``, ``global``, ``ef``, ``prev_sums``, the server optimizer's
+``opt`` moments and step count, hier's state of its base) are flat arrays
+in both packages; only the round counter changes form, a traced int32
+scalar there and a Python int here (it keys the PRNG on the host).
 """
 from __future__ import annotations
 
@@ -106,3 +111,31 @@ def state_to_reference(cfg, packed: torch.Tensor, opt: dict):
             out[k] = to_np(v)
     return to_np(packed), out
 
+
+
+def agg_state_from_reference(agg: dict, device: str | torch.device = "cpu") -> dict:
+    """The reference's ``state["agg"]`` -> the port's: arrays become tensors
+    of the same dtype and bits, ``round`` a Python int, dicts recurse."""
+    out = {}
+    for k, v in agg.items():
+        if isinstance(v, dict):
+            out[k] = agg_state_from_reference(v, device)
+        elif k == "round":
+            out[k] = int(np.asarray(v))
+        else:
+            out[k] = torch.tensor(np.asarray(v), device=device)
+    return out
+
+
+def agg_state_to_reference(agg: dict) -> dict:
+    """Inverse of :func:`agg_state_from_reference`: tensors -> NumPy arrays,
+    ``round`` -> an int32 scalar array."""
+    out = {}
+    for k, v in agg.items():
+        if isinstance(v, dict):
+            out[k] = agg_state_to_reference(v)
+        elif k == "round":
+            out[k] = np.asarray(v, np.int32)
+        else:
+            out[k] = v.detach().cpu().numpy()
+    return out

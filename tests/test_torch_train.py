@@ -15,7 +15,9 @@ images, 3 clients. Tolerances, each stated where it is used:
   reference's own rtol 1e-5 / atol 1e-5 (``tests/test_aggregators.py``);
   an all-ones mask against None: bitwise;
 - aggregators: rtol 1e-5 / atol 1e-6 (the weighted chains round
-  differently from XLA's fused ones);
+  differently from XLA's fused ones); state rows (base, ef, server moments)
+  likewise, round counters exactly; topk_ef at frac 1.0 and quant4 skip
+  against dense: bitwise;
 - whole rounds: loss rtol 1e-5, params atol 1e-6 / rtol 1e-4 (gradient
   differences after two local steps and two rounds, measured max 5e-8 on
   weights of size 0.6).
@@ -211,7 +213,37 @@ def test_bucket_reduce_cuda_kernel_equals_plain_version_on_card():
 
 # ------------------------------ aggregators ---------------------------------
 
-def _multi_bucket_ctx(mode, impl, round_idx_static=0):
+# the FedConfig fields of each aggregator case beside its mode: an int is
+# static_topn's round phase, a name one of these variants
+VARIANTS = {
+    "nearest": dict(quant4_mode="nearest"),
+    "stochastic": dict(quant4_mode="stochastic", quant4_seed=3),
+    "skip": dict(quant4_mode="skip"),
+    "int8": dict(secure_domain="int8", secure_session=5),
+    "int4": dict(secure_domain="int4", secure_session=5),
+    "int8_nomask": dict(secure_domain="int8", secure_mask=False),
+    "int4_nomask": dict(secure_domain="int4", secure_mask=False),
+    "none": dict(topk_frac=0.1),
+    "quant4": dict(topk_frac=0.2, topk_quant="quant4", quant4_mode="stochastic", quant4_seed=1),
+    "frac1": dict(topk_frac=1.0),
+    "g2_dense": dict(n_clients=4, group_size=2, hier_base="dense"),
+    "g2_eq6": dict(n_clients=4, group_size=2, hier_base="eq6"),
+    "g2_quant8": dict(n_clients=4, group_size=2, hier_base="quant8"),
+    "g1": dict(group_size=1, hier_base="quant8"),
+    "gC": dict(group_size=C, hier_base="eq6"),
+    "momentum": dict(server_lr=1.0),
+    "adam": dict(server_lr=0.02),
+    "trim": dict(trim_ratio=0.34),
+}
+
+
+def _case_kw(mode, r):
+    kw = dict(aggregation=mode, topn=2)
+    kw.update(VARIANTS[r] if isinstance(r, str) else dict(round_idx_static=r))
+    return kw
+
+
+def _multi_bucket_ctx(mode, impl, r=0):
     cfg = SimpleNamespace(n_layers=5, local_global_period=2)
 
     def make(P):
@@ -219,7 +251,7 @@ def _multi_bucket_ctx(mode, impl, round_idx_static=0):
                            "w": P((4, 6), ("layer", None))},
                 "embed": P((7, 4), (None, None)), "z": P((3,), (None,))}
 
-    kw = dict(aggregation=mode, topn=2, round_idx_static=round_idx_static)
+    kw = _case_kw(mode, r)
     t, j = make(params.ParamInfo), make(jparams.ParamInfo)
     tctx = aggregators.AggContext(cfg=cfg, fed=_fed("torch", agg_impl=impl, **kw), template=t,
                                   spec=packing.build_pack_spec(cfg, t))
@@ -228,7 +260,30 @@ def _multi_bucket_ctx(mode, impl, round_idx_static=0):
     return aggregators.get(mode)(tctx), jaggregators.get(mode)(jctx)
 
 
-CASES = [("eq6", 0), ("dense", 0), ("static_topn", 0), ("static_topn", 1)]
+CASES = [("eq6", 0), ("dense", 0), ("static_topn", 0), ("static_topn", 1),
+         ("quant8", 0), ("quant4", "nearest"), ("quant4", "stochastic"), ("quant4", "skip"),
+         ("secure", "int8"), ("secure", "int4"), ("secure", "int8_nomask"),
+         ("secure", "int4_nomask"), ("topk_ef", "none"), ("topk_ef", "quant4"),
+         ("topk_ef", "frac1"), ("hier", "g2_dense"), ("hier", "g2_eq6"), ("hier", "g2_quant8"),
+         ("hier", "g1"), ("hier", "gC"), ("fedavgm", "momentum"), ("fedadam", "adam"),
+         ("trimmed_mean", "trim")]
+# weights and partial participation by cohort size: the partial mask of 4
+# clients empties the first edge group of 2
+WEIGHTS = {3: [0.5, 0.2, 0.3], 4: [0.4, 0.1, 0.3, 0.2]}
+PARTIAL = {3: [1, 0, 1], 4: [0, 0, 1, 1]}
+
+
+def assert_state_close(ours, ref, rtol=1e-5, atol=1e-5):
+    """An aggregator state of the port against the reference's: round
+    counters exactly, every array at the stated tolerance."""
+    assert set(ours) == set(ref), (sorted(ours), sorted(ref))
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            assert_state_close(ours[k], v, rtol, atol)
+        elif k == "round":
+            assert int(ours[k]) == int(v), k
+        else:
+            np.testing.assert_allclose(ours[k].numpy(), np.asarray(v), rtol=rtol, atol=atol, err_msg=k)
 
 
 @pytest.mark.parametrize("mask_kind", ["none", "ones", "partial"])
@@ -236,21 +291,21 @@ CASES = [("eq6", 0), ("dense", 0), ("static_topn", 0), ("static_topn", 1)]
 @pytest.mark.parametrize("mode,r", CASES)
 def test_aggregators_match_reference(mode, r, which, mask_kind):
     """Both reductions: ``agg_impl="ref"`` (plain torch) and ``"kernel"``
-    (K1, its plain version on the CPU)."""
+    (K1, K4, K6, K7 or K8: their plain versions on the CPU)."""
+    kw = _case_kw(mode, r)
     if which == "fedyolov3":
-        kw = dict(aggregation=mode, topn=2, round_idx_static=r)
         jagg = jrounds.make_aggregator(JCFG, _fed("jax", **kw))
         aggs = [rounds.make_aggregator(TCFG, _fed("torch", agg_impl=i, **kw)) for i in ("ref", "kernel")]
     else:
         jagg = _multi_bucket_ctx(mode, "ref", r)[1]
         aggs = [_multi_bucket_ctx(mode, i, r)[0] for i in ("ref", "kernel")]
-    N = jagg.ctx.spec.n_total
+    N, Cn = jagg.ctx.spec.n_total, jagg.ctx.fed.n_clients
     rng = np.random.default_rng(11)
-    x0 = rng.normal(size=(C, N)).astype(np.float32)
-    x = (x0 + rng.normal(size=(C, N)) * 0.05).astype(np.float32)
-    w = np.array([0.5, 0.2, 0.3], np.float32)
-    mask = {"none": None, "ones": np.ones(C, np.float32),
-            "partial": np.array([1, 0, 1], np.float32)}[mask_kind]
+    x0 = rng.normal(size=(Cn, N)).astype(np.float32)
+    x = (x0 + rng.normal(size=(Cn, N)) * 0.05).astype(np.float32)
+    w = np.array(WEIGHTS[Cn], np.float32)
+    mask = {"none": None, "ones": np.ones(Cn, np.float32),
+            "partial": np.array(PARTIAL[Cn], np.float32)}[mask_kind]
     jout, jst = jagg.aggregate(jnp.asarray(x), jnp.asarray(w), jagg.init_state(jnp.asarray(x0)),
                                None if mask is None else jnp.asarray(mask))
     tmask = None if mask is None else torch.from_numpy(mask)
@@ -261,18 +316,22 @@ def test_aggregators_match_reference(mode, r, which, mask_kind):
         out, st = agg.aggregate(packed, torch.from_numpy(w), agg.init_state(torch.from_numpy(x0)), tmask)
         assert out.data_ptr() == packed.data_ptr()  # the dispatch is written in place
         np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-6)
-        for k in jst:
-            np.testing.assert_allclose(st[k].numpy(), np.asarray(jst[k]), rtol=1e-5, atol=1e-5)
+        assert_state_close(st, jst)
+        if r in ("frac1", "skip"):  # these collapse to dense, bit for bit
+            dense = dataclasses.replace(agg.ctx, fed=dataclasses.replace(agg.ctx.fed, aggregation="dense"))
+            ref_out, _ = aggregators.get("dense")(dense).aggregate(
+                torch.from_numpy(x.copy()), torch.from_numpy(w), {}, tmask)
+            assert torch.equal(out.view(torch.int32), ref_out.view(torch.int32))
         if mask_kind == "ones":  # all ones is None, bit for bit
             again, _ = agg.aggregate(torch.from_numpy(x.copy()), torch.from_numpy(w),
                                      agg.init_state(torch.from_numpy(x0)), None)
             assert torch.equal(again.view(torch.int32), out.view(torch.int32))
         if mask_kind == "partial":  # a masked-out row cannot move the aggregate
             junk = x.copy()
-            junk[1] = 1e3
+            junk[mask == 0] = 1e3
             moved, _ = agg.aggregate(torch.from_numpy(junk), torch.from_numpy(w),
                                      agg.init_state(torch.from_numpy(x0)), tmask)
-            np.testing.assert_array_equal(moved.numpy()[[0, 2]], out.numpy()[[0, 2]])
+            np.testing.assert_array_equal(moved.numpy()[mask > 0], out.numpy()[mask > 0])
 
 
 def test_unported_configurations_raise():
@@ -281,7 +340,7 @@ def test_unported_configurations_raise():
         with pytest.raises(NotImplementedError, match="slice"):
             rounds.make_aggregator(TCFG, _fed("torch", **kw))
     with pytest.raises(ValueError, match="the port has"):
-        rounds.make_aggregator(TCFG, _fed("torch", aggregation="quant8"))
+        rounds.make_aggregator(TCFG, _fed("torch", aggregation="no_such_mode"))
     with pytest.raises(NotImplementedError, match="slice"):
         rounds.build_fed_round(TCFG, _fed("torch"), sgd(), mesh=object())
     with pytest.raises(NotImplementedError, match="slice"):
