@@ -7,9 +7,10 @@ hand-written kernels against their plain PyTorch versions.
 Phases, each a hard check (any failure exits non-zero, with no result line):
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of the seven CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
-   quant8 reduce K4, grouped reduce K6, quant4 reduce K7, masked sum K8)
-   from ``src/repro_torch/kernels/csrc`` and its time.
+   of the nine CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
+   quant8 reduce K4, grouped reduce K6, quant4 reduce K7, masked sum K8,
+   flash attention K9, SSD chunk scan K10) from
+   ``src/repro_torch/kernels/csrc`` and its time.
 2. NMS kernel vs plain: the CUDA NMS scan against the plain PyTorch scan,
    both on the card, over six case kinds at (B, N) in (1, 1), (8, 16),
    (64, 100), (4, 1024). Keep masks must be bitwise equal (tolerance:
@@ -74,6 +75,30 @@ Phases, each a hard check (any failure exits non-zero, with no result line):
    finite losses, and per round one launch of K4 (quant8), K7 (quant4), K8
    (secure), K1 (topk_ef), K6 and K1 (hier). Prints ms per round with the
    aggregation timed alone, and the peak device memory.
+8. K9 and K10 vs plain (rtol = atol = 2e-4 in float32, 3e-2 in bfloat16,
+   the reference's own tolerances): flash attention at the qwen3 prefill's
+   (4, 16, 1024, 128) with 8 kv heads, causal, in float32 and bfloat16,
+   then windows 64 and 128, causal off, H = Hkv, hd 64, S = 128 and S = 64
+   (one tile); the SSD chunk scan's four outputs at the mamba2 prefill's
+   (B 4, S 1024, H 64, P 64, N 128, chunk 128), the reference test's
+   shapes (chunks 8, 16, 32), the main shape with bfloat16 inputs and 12
+   heads in groups of 8.
+   Kernel ms (CUDA events), device ms (profiler), plain ms, the bound, and
+   for K9 ``scaled_dot_product_attention`` on the same float32 operands as
+   the library yardstick.
+9. LM serving at full width through the launcher
+   (``repro_torch.launch.serve``): qwen3-1.7b and mamba2-1.3b, random
+   float32 weights from seed 0, ``--batch 4 --prompt-len 1024
+   --new-tokens 32``. Checks: K9 launched 28 times (qwen3) and K10 48 times
+   (mamba2) in the launcher's run, exactly one prefill's worth, and 0 times
+   in a decode step; the kernel path's last-token prefill logits equal the
+   plain path's (``attention_impl`` / ``ssm_impl = "ref"``, same weights,
+   same card) at rtol = atol = 5e-4, the first decode step's at 5e-3; the
+   kernel path, teacher-forced on the plain path's 32 greedy tokens, picks
+   the same token at every step whose top-2 margin exceeds twice the
+   logit gap. Prints prefill ms, decode ms per token, tokens/s, peak device
+   memory, and a profiled prefill's and decode step's device time split
+   into K9 / K10, the cuBLAS products and the rest, with the idle share.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -136,6 +161,27 @@ UPLINK_RUNS = {"quant8": ([], {"quant8_reduce": 1}),
                "topk_ef": ([], {"packed_bucket_reduce": 1}),
                "hier": (["--clients", "4", "--group-size", "2", "--hier-base", "eq6"],
                         {"grouped_reduce": 1, "packed_bucket_reduce": 1})}
+# phase 8: ((B, H, Hkv, S, hd), causal, window, dtype) cases of K9, the qwen3
+# prefill's first; (B, S, H, P, N, chunk, dtype) cases of K10, the mamba2
+# prefill's first; the reference's tolerances per dtype
+FLASH_CASES = [((4, 16, 8, 1024, 128), True, 0, torch.float32),
+               ((4, 16, 8, 1024, 128), True, 0, torch.bfloat16),
+               ((2, 8, 4, 512, 128), True, 64, torch.float32),
+               ((2, 8, 4, 512, 128), True, 128, torch.float32),
+               ((2, 8, 4, 512, 128), False, 0, torch.float32),
+               ((2, 8, 8, 512, 128), True, 0, torch.float32),
+               ((4, 16, 8, 1024, 64), True, 0, torch.float32),
+               ((2, 4, 2, 128, 128), True, 0, torch.float32),
+               ((2, 4, 2, 64, 128), True, 0, torch.float32)]
+SSD_CASES = [(4, 1024, 64, 64, 128, 128, torch.float32), (1, 32, 2, 8, 4, 8, torch.float32),
+             (2, 64, 3, 16, 8, 16, torch.float32), (1, 128, 1, 64, 16, 32, torch.float32),
+             (4, 1024, 64, 64, 128, 128, torch.bfloat16),
+             (4, 4096, 12, 64, 128, 128, torch.float32)]  # 8 heads a CTA, a ragged last group
+KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# phase 9: the LM serve path at full width, and the kernel each arch runs
+LM_ARCHS = [("qwen3-1.7b", "flash_attention"), ("mamba2-1.3b", "ssd_chunk_scan")]
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
+PREFILL_TOL, DECODE_TOL = 5e-4, 5e-3
 
 
 def fail(msg: str) -> None:
@@ -220,9 +266,10 @@ def same_bits(a, b) -> bool:
 
 
 def device_ms(fn, kernel: str, reps: int = 5) -> float | None:
-    """Mean device time per call of the CUDA kernel named ``kernel``, from a
-    profiler trace of ``reps`` calls (None when the trace has no device
-    time)."""
+    """Mean device time per launch of the CUDA kernel named ``kernel``, from a
+    profiler trace of ``reps`` calls: its total device time over the
+    launches the trace recorded, which may be fewer than ``reps`` (None when
+    the trace has no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,9 +279,11 @@ def device_ms(fn, kernel: str, reps: int = 5) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return total / reps / 1e3 if total > 0 else None
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    total, count = sum(e.device_time_total for e in rows), sum(e.count for e in rows)
+    if count != reps:
+        print(f"device_ms {kernel}: the trace recorded {count} of {reps} launches", flush=True)
+    return total / count / 1e3 if total > 0 else None
 
 
 def roofline(nbytes: float, ops: float) -> tuple[float, str]:
@@ -782,6 +831,267 @@ def phase7(dev, card: str) -> dict:
     return main_launches
 
 
+def flash_bound_ms(B: int, H: int, Hkv: int, S: int, hd: int, causal: bool, window: int,
+                   esize: int) -> tuple[float, str]:
+    """K9 reads q, k and v once and writes out; per visible (query, key) pair
+    2 hd operations for q.k, 2 hd for p.v and 3 for the softmax (subtract
+    the max, exp, add to the row sum). Pairs outside the band cost nothing."""
+    rel = torch.arange(S)[:, None] - torch.arange(S)[None, :]
+    vis = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        vis &= rel >= 0
+    if window:
+        vis &= rel < window
+    pairs = int(vis.sum()) * B * H
+    return roofline(esize * (2 * B * H * S * hd + 2 * B * Hkv * S * hd), pairs * (4 * hd + 3))
+
+
+def ssd_bound_ms(B: int, S: int, H: int, P: int, N: int, Q: int, esize: int) -> tuple[float, str]:
+    """K10 reads xdt, dA, Bm and Cm once and writes y, states, chunk_decay
+    and exp_cum (float32). The least work: C B^T over the causal triangle
+    once per (batch, chunk) (B and C have no head axis); per (batch, chunk,
+    head) the triangle's exp, L and G * L (3 per pair) and y (2 P per pair),
+    B times the decay (Q N), the states (2 Q N P) and the cumsum and exps
+    (3 Q)."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    ops = B * nc * tri * 2 * N + B * nc * H * (tri * (3 + 2 * P) + Q * N + 2 * Q * N * P + 3 * Q)
+    nbytes = (esize * (B * S * H * P + 2 * B * S * N) + 4 * B * S * H
+              + 4 * (B * S * H * P + B * nc * H * P * N + B * nc * H + B * S * H))
+    return roofline(nbytes, ops)
+
+
+def phase8(dev, card: str) -> dict:
+    """K9 and K10 against their plain versions on the card at the
+    reference's tolerances; times and bounds at the main path's shapes.
+    -> {kernel: fields}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    stats = {"flash_attention": {"cases": 0, "max_abs_err": 0.0},
+             "ssd_chunk_scan": {"cases": 0, "max_abs_err": 0.0}}
+
+    for (B, H, Hkv, S, hd), causal, window, dt in FLASH_CASES:
+        q = torch.randn((B, H, S, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, Hkv, S, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Hkv, S, hd), generator=g, device=dev).to(dt)
+        kern = ops.flash_attention(q, k, v, causal=causal, window=window)
+        plain = ops.flash_attention(q, k, v, causal=causal, window=window, impl="ref")
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL[dt]
+        err = float((kern.float() - plain.float()).abs().max())
+        what = f"flash_attention {(B, H, Hkv, S, hd)} causal={causal} window={window} {dt}"
+        check(kern.dtype == dt and torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol),
+              f"{what}: kernel != plain at {tol} (max abs err {err:.3e})")
+        st = stats["flash_attention"]
+        st["cases"] += 1
+        if dt == torch.float32:
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+        k_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+        bound, by = flash_bound_ms(B, H, Hkv, S, hd, causal, window, q.element_size())
+        line = f"phase8 {what}: max abs err {err:.3e} (tol {tol}) kernel_ms={k_ms:.4f} bound_ms={bound:.4f} ({by})"
+        if st["cases"] == 1:  # the qwen3 prefill's shape, float32
+            st.update(ms=k_ms, bound_ms=bound, bound_by=by,
+                      plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), reps=5, warmup=1),
+                      device_ms=device_ms(lambda: ops.flash_attention(q, k, v), "flash_attention_kernel"),
+                      library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True, enable_gqa=True)))
+            sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            line += (f" device_ms={st['device_ms']} plain_ms={st['plain_ms']:.4f} "
+                     f"sdpa_ms={st['library_ms']:.4f} (yardstick only; |sdpa - kernel| max "
+                     f"{float((sdpa - kern).abs().max()):.3e})")
+        print(f"{line}  [{card}]", flush=True)
+
+    for B, S, H, P, N, Q, dt in SSD_CASES:
+        xdt = (torch.randn((B, S, H, P), generator=g, device=dev) * 0.1).to(dt)
+        dA = -(torch.randn((B, S, H), generator=g, device=dev) * 0.1).abs()
+        Bm = torch.randn((B, S, N), generator=g, device=dev).to(dt)
+        Cm = torch.randn((B, S, N), generator=g, device=dev).to(dt)
+        kern = ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q)
+        plain = ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q, impl="ref")
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+        what = f"ssd_chunk_scan (B, S, H, P, N, Q)={(B, S, H, P, N, Q)} {dt}"
+        for name, a, b in zip(("y_diag", "states", "chunk_decay", "exp_cum"), kern, plain):
+            check(a.dtype == torch.float32 and torch.allclose(a, b, rtol=2e-4, atol=2e-4),
+                  f"{what}: kernel {name} != plain at 2e-4 (max abs err {float((a - b).abs().max()):.3e})")
+        st = stats["ssd_chunk_scan"]
+        st["cases"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], max(errs))
+        k_ms = time_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q))
+        bound, by = ssd_bound_ms(B, S, H, P, N, Q, xdt.element_size())
+        line = (f"phase8 {what}: max abs err y/states/decay/exp_cum "
+                f"{' '.join(f'{e:.3e}' for e in errs)} (tol 2e-4) kernel_ms={k_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by})")
+        if st["cases"] == 1:  # the mamba2 prefill's shape, float32
+            st.update(ms=k_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                      plain_ms=time_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q, impl="ref"),
+                                       reps=5, warmup=1),
+                      device_ms=device_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q),
+                                          "ssd_chunk_scan_kernel"))
+            line += f" device_ms={st['device_ms']} plain_ms={st['plain_ms']:.4f}"
+        print(f"{line}  [{card}]", flush=True)
+    return stats
+
+
+def profile_lm(fn, kernel: str, card: str, tag: str, what: str) -> None:
+    """One profiled call of ``fn`` (a prefill or a decode step): device time
+    split into the port's kernel, the cuBLAS products and the rest, and the
+    idle share of its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0), reverse=True)
+    if not rows:
+        print(f"phase9 {tag} {what} profile: not measured (the profiler recorded no device kernel)"
+              f"  [{card}]")
+        return
+    fam = {f"{kernel} (port)": 0.0, "cuBLAS products": 0.0, "elementwise, reductions, copies": 0.0}
+    for ms, _, key in rows:
+        if f"{kernel}_kernel" in key:
+            fam[f"{kernel} (port)"] += ms
+        elif any(w in key.lower() for w in ("gemm", "cublas", "cutlass", "sm90_", "ampere_")):
+            fam["cuBLAS products"] += ms
+        else:
+            fam["elementwise, reductions, copies"] += ms
+    total = sum(fam.values())
+    for ms, cnt, key in rows[:6]:
+        print(f"phase9 {tag} {what} profile {ms:9.4f} ms x{cnt:4d}  {key[:100]}", flush=True)
+    print(f"phase9 {tag} profile one {what}: wall {wall_ms:.3f} ms, device kernels {total:.3f} ms "
+          f"(idle share {1 - total / wall_ms:.3f}); "
+          + "; ".join(f"{k} {v:.3f} ms ({v / total:.3f})" for k, v in fam.items()) + f"  [{card}]",
+          flush=True)
+
+
+def phase9(dev, card: str) -> dict:
+    """LM serving at full width through the launcher: qwen3-1.7b (K9) and
+    mamba2-1.3b (K10). -> {kernel: main-path fields}."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import serve
+    from repro_torch.models import serving as MS
+    from repro_torch.models.params import flatten_with_paths
+
+    counters = {"flash_attention": kflash.flash_attention, "ssd_chunk_scan": kssd.ssd_chunk_scan}
+    out = {}
+    for arch, kernel in LM_ARCHS:
+        cfg = get_arch(arch)
+        kcfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+        rcfg = dataclasses.replace(cfg, attention_impl="ref", ssm_impl="ref")
+        params = serve.lm_params(kcfg, dev)
+        n_params = sum(w.numel() for _, w in flatten_with_paths(params))
+        flags = ["--arch", arch, "--full-size", "--batch", str(LM_BATCH), "--prompt-len",
+                 str(LM_PROMPT), "--new-tokens", str(LM_NEW), "--device", str(dev)]
+        args = serve.build_parser().parse_args(flags)
+
+        # -- the launcher's path, counts read just around it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        summary = serve.serve_lm(cfg, args, dev, params=params)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches[kernel] == cfg.n_layers and sum(launches.values()) == cfg.n_layers,
+              f"{arch}: launches {launches} in one prefill of {cfg.n_layers} layers and "
+              f"{LM_NEW} decode steps")
+        check(len(summary["generated"]) == LM_NEW, f"{arch}: generated {summary['generated']}")
+
+        # -- kernel path against the plain path on the same card and weights
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+        batch = {"tokens": prompts}
+        max_len = LM_PROMPT + LM_NEW
+        with torch.inference_mode():
+            before = counters[kernel].launches
+            kl, kc = MS.prefill(kcfg, params, batch, max_len=max_len)
+            check(counters[kernel].launches - before == cfg.n_layers,
+                  f"{arch}: the kernel path's prefill launched {kernel} "
+                  f"{counters[kernel].launches - before} times")
+            rl, rc = MS.prefill(rcfg, params, batch, max_len=max_len)
+            check(all(torch.isfinite(t).all() for t in (kl, rl)), f"{arch}: non-finite prefill logits")
+            pre_gap = float((kl - rl).abs().max())
+            check(torch.allclose(kl, rl, rtol=PREFILL_TOL, atol=PREFILL_TOL),
+                  f"{arch}: kernel prefill logits != plain at {PREFILL_TOL} (gap {pre_gap:.3e})")
+            # teacher forcing on the plain path's greedy tokens
+            k_steps, r_steps = [kl[:, -1]], [rl[:, -1]]
+            tok = rl[:, -1].argmax(-1, keepdim=True)
+            dec_gap = None
+            for i in range(LM_NEW):
+                before = counters[kernel].launches
+                kd, kc = MS.decode_step(kcfg, params, kc, tok, LM_PROMPT + i)
+                check(counters[kernel].launches == before, f"{arch}: a decode step launched {kernel}")
+                rd, rc = MS.decode_step(rcfg, params, rc, tok, LM_PROMPT + i)
+                if i == 0:
+                    dec_gap = float((kd - rd).abs().max())
+                    check(torch.allclose(kd, rd, rtol=DECODE_TOL, atol=DECODE_TOL),
+                          f"{arch}: first decode logits != plain at {DECODE_TOL} (gap {dec_gap:.3e})")
+                k_steps.append(kd[:, -1])
+                r_steps.append(rd[:, -1])
+                tok = rd[:, -1].argmax(-1, keepdim=True)
+            agree = decided = 0
+            for ks, rs in zip(k_steps[:LM_NEW], r_steps[:LM_NEW]):
+                top2 = rs.float().topk(2, dim=-1).values
+                margin = top2[:, 0] - top2[:, 1]
+                row_gap = (ks.float() - rs.float()).abs().amax(-1)
+                same = ks.argmax(-1) == rs.argmax(-1)
+                firm = margin > 2 * row_gap
+                check(bool(same[firm].all()), f"{arch}: a token with a clear margin differs")
+                agree += int(same.sum())
+                decided += int(firm.sum())
+            del kc, rc
+            # -- where the time goes
+            prefill_ms = time_ms(lambda: MS.prefill(kcfg, params, batch, max_len=max_len), reps=3,
+                                 warmup=1)
+            plain_prefill_ms = time_ms(lambda: MS.prefill(rcfg, params, batch, max_len=max_len),
+                                       reps=3, warmup=1)
+            _, cache = MS.prefill(kcfg, params, batch, max_len=max_len)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            tok = prompts[:, -1:]
+            start.record()
+            for i in range(LM_NEW):
+                logits, cache = MS.decode_step(kcfg, params, cache, tok, LM_PROMPT + i)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            end.record()
+            end.synchronize()
+            decode_ms = start.elapsed_time(end) / LM_NEW
+            del cache
+            print(f"phase9 {arch} full width ({n_params} params, f32 weights) batch {LM_BATCH} prompt "
+                  f"{LM_PROMPT} new {LM_NEW} through the launcher: {launches[kernel]} {kernel} launches "
+                  f"(one per layer, 0 in decode); prefill logits gap {pre_gap:.3e} (tol {PREFILL_TOL}), "
+                  f"first decode gap {dec_gap:.3e} (tol {DECODE_TOL}); teacher-forced tokens agree "
+                  f"{agree} of {LM_NEW * LM_BATCH} ({decided} with a top-2 margin above twice the gap, "
+                  f"all agree)  [{card}]", flush=True)
+            print(f"phase9 {arch} prefill_ms={prefill_ms:.3f} (plain path {plain_prefill_ms:.3f}) "
+                  f"decode_ms_per_token={decode_ms:.3f} decode_tokens_per_s={LM_BATCH * 1e3 / decode_ms:.2f} "
+                  f"launcher_tokens_per_s={summary['tokens_per_s']} (prefill included) "
+                  f"peak_device_memory_gib={peak:.2f}  [{card}]", flush=True)
+            profile_lm(lambda: MS.prefill(kcfg, params, batch, max_len=max_len), kernel, card, arch,
+                       "prefill")
+            _, cache = MS.prefill(kcfg, params, batch, max_len=max_len)
+            profile_lm(lambda: MS.decode_step(kcfg, params, cache, prompts[:, -1:], LM_PROMPT), kernel,
+                       card, arch, "decode step")
+            del cache
+        out[kernel] = {"launches": launches[kernel],
+                       "main_path": f"serve --arch {arch} --full-size --batch {LM_BATCH} "
+                                    f"--prompt-len {LM_PROMPT} --new-tokens {LM_NEW}"}
+        del params, kl, rl, k_steps, r_steps
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -981,6 +1291,10 @@ def main() -> None:
     k_stats.update(phase6(dev, card))
     uplink_launches = phase7(dev, card)
 
+    # ---- phases 8 and 9: the LM kernels and the LM serve path ------------
+    k_stats.update(phase8(dev, card))
+    lm_launches = phase9(dev, card)
+
     kernels = [{
         "name": "nms_keep",
         "route": "cuda",
@@ -1028,6 +1342,20 @@ def main() -> None:
             "ms": st["ms"], "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": st["library_ms"],
             "cases": st["cases"],
+        })
+    for kernel, source, replaces in (
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:98"),
+        ("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan.py:51"),
+    ):
+        st = k_stats[kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": lm_launches[kernel]["launches"], "main_path": lm_launches[kernel]["main_path"],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": st["library_ms"], "cases": st["cases"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

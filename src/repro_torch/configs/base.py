@@ -56,6 +56,10 @@ class ArchConfig:
     dtype: str = "bfloat16"
     source: str = ""  # citation bracket from the assignment
 
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts
         (``repro/configs/base.py::ArchConfig.reduced``)."""

@@ -93,13 +93,13 @@ class FedConfig:
 
 def loss_for(cfg) -> Callable:
     if cfg.family != "yolo":
-        raise NotImplementedError(f"{cfg.name}: the LM family is ported in slice 7")
+        raise NotImplementedError(f"{cfg.name}: LM training is ported in slice 7b")
     return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
 
 
 def make_template(cfg) -> PyTree:
     if cfg.family != "yolo":
-        raise NotImplementedError(f"{cfg.name}: the LM family is ported in slice 7")
+        raise NotImplementedError(f"{cfg.name}: LM training is ported in slice 7b")
     return yolov3.template(cfg)
 
 
@@ -127,7 +127,7 @@ def _check_ported(fed: FedConfig) -> None:
     if fed.participation not in ("full", "masked"):
         raise ValueError(f"unknown participation {fed.participation!r}; expected full|masked|compact")
     if fed.microbatches != 1:
-        raise NotImplementedError("microbatched local steps come with the LM family in slice 7")
+        raise NotImplementedError("microbatched local steps come with LM training in slice 7b")
     if fed.agg_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown agg_impl {fed.agg_impl!r}; expected ref|kernel")
 

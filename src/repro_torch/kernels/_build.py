@@ -2,7 +2,8 @@
 
 The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
 ``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``grouped_reduce.cu`` K6,
-``masked_sum.cu`` K8 and the shared ``errors.cu``) are compiled for ``sm_90a`` by
+``masked_sum.cu`` K8, ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10 and
+the shared ``errors.cu``) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -13,7 +14,8 @@ versions.
 
 Flags: ``-O3``, ``sm_90a``, and ``-fmad=false`` so no product is contracted
 into an FMA (the bit-for-bit contract with ``kernels/ref.py``); no fast
-math, so division stays IEEE round-to-nearest.
+math, so division stays IEEE round-to-nearest. K9 and K10, held to their
+plain versions at a tolerance, write their products as explicit ``fmaf``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "quant_reduce.cu", "grouped_reduce.cu",
-           "masked_sum.cu", "errors.cu")
+           "masked_sum.cu", "flash_attention.cu", "ssd_scan.cu", "errors.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false"]
 
 _lock = threading.Lock()
@@ -55,6 +57,8 @@ def _load_locked() -> ctypes.CDLL:
         "quant_reduce_launch": [p, p, p, i, ll, i, f, i, u, p],
         "grouped_reduce_launch": [p, p, p, i, i, ll, p],
         "masked_u32_sum_launch": [p, p, p, i, ll, p],
+        "flash_attention_launch": [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), i, i, f, p],
+        "ssd_chunk_scan_launch": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

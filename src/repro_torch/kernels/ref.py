@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro/kernels/ref.py::nms_np``, ``pairwise_iou_np``, ``_corners_np`` and
-``packed_bucket_reduce``, and of the fused transports K4, K6, K7, K8).
+``packed_bucket_reduce``, of the fused transports K4, K6, K7, K8, and of the
+LM kernels K9 ``flash_attention`` and K10 ``ssd_chunk_scan``).
 
 The detection versions are straight transcriptions of the reference's
 NumPy oracles, op for op in float32: every op is a plain IEEE
@@ -172,3 +173,55 @@ def masked_u32_sum(rows: torch.Tensor, participation: torch.Tensor) -> torch.Ten
     for c in range(rows.shape[0]):
         acc = (acc + torch.where(on[c], rows[c].to(torch.int64) & packing.U32, 0)) & packing.U32
     return packing.to_int32_bits(acc)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """K9's plain version (``repro/kernels/ref.py::flash_attention``): q (B,
+    H, S, hd), k/v (B, Hkv, S, hd) -> (B, H, S, hd) in ``q.dtype``, float32
+    inside. Query head h reads kv head h // (H / Hkv); ``window > 0`` keeps
+    keys with ``qpos - kpos < window``. Scores are divided by sqrt(hd)."""
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, S, hd).float()
+    scores = torch.einsum("bkgsh,bkth->bkgst", qg, k.float())
+    scores = scores / torch.tensor(float(hd), device=q.device).sqrt()
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rel >= 0
+    if window:
+        mask &= rel < window
+    probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bkgst,bkth->bkgsh", probs, v.float())
+    return out.reshape(B, H, S, hd).to(q.dtype)
+
+
+def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   chunk: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10's plain version (the body of ``repro/kernels/ssd_scan.py::_kernel``
+    for every (batch, chunk, head) at once). xdt (B, S, H, P), dA (B, S, H),
+    Bm/Cm (B, S, N), S % chunk == 0 -> float32 (y_diag (B, S, H, P), states
+    (B, nc, H, P, N), chunk_decay (B, nc, H), exp_cum (B, S, H)):
+    cum = cumsum(dA) within the chunk, L = tril(exp(cum_q - cum_t)),
+    y_diag = (C Bt * L) xdt, states = (B * exp(cum_last - cum))t xdt as (P, N),
+    chunk_decay = exp(cum_last), exp_cum = exp(cum)."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    x = xdt.float().reshape(B, nc, chunk, H, P)
+    Bc = Bm.float().reshape(B, nc, chunk, N)
+    Cc = Cm.float().reshape(B, nc, chunk, N)
+    cum = torch.cumsum(dA.float().reshape(B, nc, chunk, H), dim=2)  # (B, nc, Q, H)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=xdt.device).tril()[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    scores = torch.einsum("bcqn,bctn->bcqt", Cc, Bc)
+    y = torch.einsum("bcqth,bcthp->bcqhp", scores[..., None] * L, x)
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
+    states = torch.einsum("bcthn,bcthp->bchpn", Bc[:, :, :, None, :] * decay_states[..., None], x)
+    return (y.reshape(B, S, H, P), states, torch.exp(cum[:, :, -1, :]),
+            torch.exp(cum).reshape(B, S, H))

@@ -1,22 +1,30 @@
-"""Serving launcher: the online detection service (port of the yolo branch of
-``repro/launch/serve.py``).
+"""Serving launcher: the online detection service and batched LM decode
+(port of ``repro/launch/serve.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --full-size --img-size 416
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --store /tmp/cos
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --one-shot
   PYTHONPATH=src python -m repro_torch.launch.serve --img-size 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --full-size --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
 
-The default mode stands up ``core.serving.InferenceService`` on a socket,
-drives ``--requests`` synthetic requests through an ``InferenceClient`` and
-prints the QPS/latency/freshness summary as one JSON line. ``--store`` /
-``--task-id`` restore the federated model from a COS store written by either
-package, published at the stored round version. ``--one-shot`` decodes one
-batch and exits. ``--device`` defaults to ``cuda`` and never falls back to
-the CPU. The LM decode path of the reference launcher is not ported yet.
+yolo-family archs serve detections: the default mode stands up
+``core.serving.InferenceService`` on a socket, drives ``--requests``
+synthetic requests through an ``InferenceClient`` and prints the
+QPS/latency/freshness summary as one JSON line. ``--store`` / ``--task-id``
+restore the federated model from a COS store written by either package,
+published at the stored round version. ``--one-shot`` decodes one batch and
+exits. LM archs (qwen3-1.7b, mamba2-1.3b) prefill ``--batch`` random prompts
+of ``--prompt-len`` tokens and decode ``--new-tokens`` more (greedy, or
+sampled at ``--temperature``), with ``attention_impl`` and ``ssm_impl`` set
+to ``"kernel"``: flash attention (K9) and the SSD chunk scan (K10) run in the
+prefill on the card, their plain versions on the CPU. ``--device`` defaults
+to ``cuda`` and never falls back to the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -27,6 +35,62 @@ from repro_torch import device as D
 from repro_torch.checkpoint import ObjectStore
 from repro_torch.configs import get_arch
 from repro_torch.models.yolov3 import FedYOLOv3
+
+
+def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, temperature: float = 0.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """prompts (B, S) int -> (B, new_tokens) int64: prefill with the cache
+    sized for ``S + new_tokens``, then one ``decode_step`` per new token;
+    greedy at ``temperature`` 0, else sampled from ``generator``."""
+    from repro_torch.models import serving as MS
+
+    B, Sq = prompts.shape
+    with torch.inference_mode():
+        logits, cache = MS.prefill(cfg, params, {"tokens": prompts}, max_len=Sq + new_tokens)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out = []
+        for i in range(new_tokens):
+            out.append(tok)
+            logits, cache = MS.decode_step(cfg, params, cache, tok, Sq + i)
+            if temperature > 0:
+                probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)
+            else:
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+    return torch.cat(out, dim=1)
+
+
+def lm_params(cfg, dev: torch.device):
+    """Random float32 weights from seed 0, drawn on ``dev`` (a full-width
+    model is drawn by the card, not by 1.7 B host ``randn`` calls)."""
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+
+    return P.init_params(T.template(cfg), torch.Generator(device=dev).manual_seed(0))
+
+
+def serve_lm(cfg, args, dev: torch.device, params=None) -> dict:
+    """Prefill random prompts (``default_rng(0)``) and decode; print and
+    return the JSON summary. ``params`` default to :func:`lm_params`."""
+    cfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+    if params is None:
+        params = lm_params(cfg, dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompts, args.new_tokens, args.temperature, gen)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    summary = {
+        "arch": cfg.name,
+        "generated": toks[0].tolist(),
+        "tokens_per_s": round(args.batch * args.new_tokens / dt, 2),
+        "device": _device_name(dev),
+    }
+    print(json.dumps(summary))
+    return summary
 
 
 def restore_params(cfg, args, device: torch.device):
@@ -132,11 +196,14 @@ def serve_service(cfg, args, dev: torch.device) -> None:
     }))
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="fedyolov3")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu; no fallback")
-    ap.add_argument("--batch", type=int, default=4, help="--one-shot: images decoded")
+    ap.add_argument("--batch", type=int, default=4, help="LM prompts; --one-shot: images decoded")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")
+    ap.add_argument("--new-tokens", type=int, default=16, help="LM: tokens decoded")
+    ap.add_argument("--temperature", type=float, default=0.0, help="LM: 0 = greedy")
     ap.add_argument("--img-size", type=int, default=64, help="served image size")
     ap.add_argument("--max-detections", type=int, default=16, help="NMS output slots")
     ap.add_argument("--store", default="", help="COS dir to restore the federated model from")
@@ -150,16 +217,22 @@ def main() -> None:
                     help="service: batch slots of the decode+NMS program")
     ap.add_argument("--full-size", action="store_true",
                     help="use the full config (must match how the stored model was trained)")
-    args = ap.parse_args()
+    return ap
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = build_parser().parse_args(argv)
 
     try:
-        cfg = get_arch(args.arch)  # only the detection model is ported
+        cfg = get_arch(args.arch)
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
     if not args.full_size:
         cfg = cfg.reduced()
     dev = D.resolve(args.device)
-    if args.one_shot:
+    if cfg.family != "yolo":
+        serve_lm(cfg, args, dev)
+    elif args.one_shot:
         serve_detection(cfg, args, dev)
     else:
         serve_service(cfg, args, dev)

@@ -136,7 +136,7 @@ def _check_ported(args) -> None:
     if args.mode != "sync":
         raise NotImplementedError("--mode async (the buffered engines) is slice 4")
     if args.task == "lm":
-        raise NotImplementedError("--task lm (the LM family) is slice 7")
+        raise NotImplementedError("--task lm (LM training) is slice 7b")
     if args.agg != "hier" and (args.group_size or args.hier_base != "dense"):
         raise ValueError("--group-size/--hier-base configure the hierarchical aggregator; "
                          "pass --agg hier")

@@ -18,6 +18,11 @@ and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
 ``opt`` moments and step count, hier's state of its base) are flat arrays
 in both packages; only the round counter changes form, a traced int32
 scalar there and a Python int here (it keys the PRNG on the host).
+
+:func:`lm_params_from_reference` and :func:`lm_params_to_reference` carry an
+LM's param tree (``transformer.template``'s layout, layer stacks stacked) in
+both directions; the layout is the same in both packages, so only the
+container changes and a round trip is bit-exact.
 """
 from __future__ import annotations
 
@@ -139,3 +144,14 @@ def agg_state_to_reference(agg: dict) -> dict:
         else:
             out[k] = v.detach().cpu().numpy()
     return out
+
+
+def lm_params_from_reference(tree: PyTree, device: str | torch.device = "cpu") -> PyTree:
+    """The reference's LM param tree (NumPy or JAX arrays) -> the port's tree
+    of tensors on ``device``, same keys, shapes, dtypes and bits."""
+    return map_tree(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+
+
+def lm_params_to_reference(params: PyTree) -> PyTree:
+    """Inverse of :func:`lm_params_from_reference`: a tree of NumPy arrays."""
+    return map_tree(lambda t: t.detach().cpu().numpy(), params)

@@ -57,19 +57,22 @@ def _fan_in(info: ParamInfo) -> int:
 
 def init_params(template: PyTree, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> PyTree:
-    """Initialize host tensors from a template, leaves drawn in flattening
-    order from ``generator``. Same distributions as the reference's
-    ``init_params``, not the same numbers: parity with the reference comes
-    from carrying its weights over (``models.convert``)."""
+    """Initialize tensors from a template on ``generator``'s device, leaves
+    drawn in flattening order from ``generator``. Same distributions as the
+    reference's ``init_params``, not the same numbers: parity with the
+    reference comes from carrying its weights over (``models.convert``)."""
+    dev = generator.device
+
     def make(info: ParamInfo) -> torch.Tensor:
         if info.init == "zeros":
-            return torch.zeros(info.shape, dtype=dtype)
+            return torch.zeros(info.shape, dtype=dtype, device=dev)
         if info.init == "ones":
-            return torch.ones(info.shape, dtype=dtype)
+            return torch.ones(info.shape, dtype=dtype, device=dev)
         std = info.scale / math.sqrt(_fan_in(info))
         if info.init == "small_normal":
             std = 0.02 * info.scale
-        return (torch.randn(info.shape, generator=generator, dtype=torch.float32) * std).to(dtype)
+        w = torch.randn(info.shape, generator=generator, dtype=torch.float32, device=dev)
+        return (w * std).to(dtype)
 
     # draw in flattening order (sorted keys), then rebuild the tree
     drawn = {path: make(info) for path, info in flatten_with_paths(template)}

@@ -329,7 +329,12 @@ def test_serve_cli_runs_the_port_service_on_cpu():
 
 
 def test_serve_cli_refuses_unported_arch():
-    r = _run(["-m", "repro_torch.launch.serve", "--arch", "qwen3-1.7b", "--device", "cpu"])
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "zamba2-2.7b", "--device", "cpu"])
+    assert r.returncode != 0 and "not ported yet" in r.stderr
+
+
+def test_serve_cli_refuses_unported_moe_arch():
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "granite-moe-1b-a400m", "--device", "cpu"])
     assert r.returncode != 0 and "not ported yet" in r.stderr
 
 
