@@ -7,9 +7,9 @@ hand-written kernels against their plain PyTorch versions.
 Phases, each a hard check (any failure exits non-zero, with no result line):
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of the nine CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
+   of the ten CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
    quant8 reduce K4, grouped reduce K6, quant4 reduce K7, masked sum K8,
-   flash attention K9, SSD chunk scan K10) from
+   flash attention K9, SSD chunk scan K10, per-leaf FedAvg K11) from
    ``src/repro_torch/kernels/csrc`` and its time.
 2. NMS kernel vs plain: the CUDA NMS scan against the plain PyTorch scan,
    both on the card, over six case kinds at (B, N) in (1, 1), (8, 16),
@@ -99,6 +99,25 @@ Phases, each a hard check (any failure exits non-zero, with no result line):
    logit gap. Prints prefill ms, decode ms per token, tokens/s, peak device
    memory, and a profiled prefill's and decode step's device time split
    into K9 / K10, the cuBLAS products and the rest, with the idle share.
+10. LM training and the compression demo at full width. (a) K11 against its
+   plain version, bitwise (tolerance: none), at C in (1, 2, 3, 8) and N in
+   (1, 1023, 1025, 4,194,305), f32 and bf16, full, alternating and all-zero
+   masks; its times at the main path's largest leaf (C 2, 352,321,536
+   elements) beside the bound, the plain version and ``torch.mv``. (b)
+   Gradients through K9 and K10: a one-layer qwen3-1.7b and mamba2-1.3b at
+   full width, batch 1 x 1024, f32, kernel branch against plain branch:
+   loss rtol 1e-4, gradients rtol 5e-3 / atol 5e-4 (the reference's pins),
+   2 launches (the forward and its checkpointed recompute). (c) One masked
+   adamw eq6 round of the reduced qwen3 at seq 128 on the card and on the
+   host from one state, at the CPU tests' bounds. (d) The launcher's LM path
+   (``repro_torch.launch.train --task lm --full-size --clients 2 --rounds 3
+   --batch 1 --seq 1024``) for qwen3-1.7b and mamba2-1.3b, one after the
+   other: finite losses, K9 / K10 launched 2 per layer per local step, K1
+   once per round, peak device memory under 75 GiB; ms per round and the
+   eq6 aggregation alone (CUDA events), a profiled round's idle share.
+   (e) The demo's tail (``examples.compression_demo.report``) on qwen3's
+   trained state: Eq. 6 scores and uploads, one K1 launch, ``fedavg_tree``
+   with one K11 launch per leaf, bitwise equal to its plain version.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -182,6 +201,12 @@ KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 LM_ARCHS = [("qwen3-1.7b", "flash_attention"), ("mamba2-1.3b", "ssd_chunk_scan")]
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 1024, 32
 PREFILL_TOL, DECODE_TOL = 5e-4, 5e-3
+# phase 10: K11's (C, N) cases; the gradient check's sequence and pins (the
+# reference's, tests/test_kernels.py:96-142); the LM training path
+FEDAVG_C, FEDAVG_N = (1, 2, 3, 8), (1, 1023, 1025, 4_194_305)
+GRAD_SEQ, GRAD_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1024, 1e-4, 5e-3, 5e-4
+LM_TRAIN_CLIENTS, LM_TRAIN_ROUNDS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 3, 1, 1024
+LM_TRAIN_PEAK_GIB = 75.0
 
 
 def fail(msg: str) -> None:
@@ -935,10 +960,13 @@ def phase8(dev, card: str) -> dict:
     return stats
 
 
-def profile_lm(fn, kernel: str, card: str, tag: str, what: str) -> None:
-    """One profiled call of ``fn`` (a prefill or a decode step): device time
-    split into the port's kernel, the cuBLAS products and the rest, and the
-    idle share of its wall time."""
+def profile_lm(fn, ports: dict, card: str, tag: str, what: str, phase: str = "phase9",
+               host: bool = False) -> None:
+    """One profiled call of ``fn`` (a prefill, a decode step or a training
+    round): device time split into the port's kernels (``ports``: label ->
+    kernel-name substrings), the cuBLAS products and the rest, and the idle
+    share of its wall time; with ``host`` also the launches made and the
+    host-side ops that held the host longest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -951,21 +979,30 @@ def profile_lm(fn, kernel: str, card: str, tag: str, what: str) -> None:
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.device_time_total > 0), reverse=True)
     if not rows:
-        print(f"phase9 {tag} {what} profile: not measured (the profiler recorded no device kernel)"
+        print(f"{phase} {tag} {what} profile: not measured (the profiler recorded no device kernel)"
               f"  [{card}]")
         return
-    fam = {f"{kernel} (port)": 0.0, "cuBLAS products": 0.0, "elementwise, reductions, copies": 0.0}
+    fam = {**{label: 0.0 for label in ports}, "cuBLAS products": 0.0,
+           "elementwise, reductions, copies": 0.0}
     for ms, _, key in rows:
-        if f"{kernel}_kernel" in key:
-            fam[f"{kernel} (port)"] += ms
-        elif any(w in key.lower() for w in ("gemm", "cublas", "cutlass", "sm90_", "ampere_")):
-            fam["cuBLAS products"] += ms
-        else:
-            fam["elementwise, reductions, copies"] += ms
+        label = next((lb for lb, names in ports.items() if any(n in key for n in names)), None)
+        if label is None:
+            label = ("cuBLAS products"
+                     if any(w in key.lower() for w in ("gemm", "cublas", "cutlass", "sm90_", "ampere_"))
+                     else "elementwise, reductions, copies")
+        fam[label] += ms
     total = sum(fam.values())
     for ms, cnt, key in rows[:6]:
-        print(f"phase9 {tag} {what} profile {ms:9.4f} ms x{cnt:4d}  {key[:100]}", flush=True)
-    print(f"phase9 {tag} profile one {what}: wall {wall_ms:.3f} ms, device kernels {total:.3f} ms "
+        print(f"{phase} {tag} {what} profile {ms:9.4f} ms x{cnt:4d}  {key[:100]}", flush=True)
+    if host:
+        cpu = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                      if e.self_cpu_time_total > 0), reverse=True)
+        for ms, cnt, key in cpu[:6]:
+            print(f"{phase} {tag} {what} profile host {ms:9.3f} ms self x{cnt:6d}  {key[:80]}",
+                  flush=True)
+        print(f"{phase} {tag} {what} profile: {sum(r[1] for r in rows)} device kernel launches"
+              f"  [{card}]", flush=True)
+    print(f"{phase} {tag} profile one {what}: wall {wall_ms:.3f} ms, device kernels {total:.3f} ms "
           f"(idle share {1 - total / wall_ms:.3f}); "
           + "; ".join(f"{k} {v:.3f} ms ({v / total:.3f})" for k, v in fam.items()) + f"  [{card}]",
           flush=True)
@@ -1078,10 +1115,11 @@ def phase9(dev, card: str) -> dict:
                   f"decode_ms_per_token={decode_ms:.3f} decode_tokens_per_s={LM_BATCH * 1e3 / decode_ms:.2f} "
                   f"launcher_tokens_per_s={summary['tokens_per_s']} (prefill included) "
                   f"peak_device_memory_gib={peak:.2f}  [{card}]", flush=True)
-            profile_lm(lambda: MS.prefill(kcfg, params, batch, max_len=max_len), kernel, card, arch,
+            port = {f"{kernel} (port)": (f"{kernel}_kernel",)}
+            profile_lm(lambda: MS.prefill(kcfg, params, batch, max_len=max_len), port, card, arch,
                        "prefill")
             _, cache = MS.prefill(kcfg, params, batch, max_len=max_len)
-            profile_lm(lambda: MS.decode_step(kcfg, params, cache, prompts[:, -1:], LM_PROMPT), kernel,
+            profile_lm(lambda: MS.decode_step(kcfg, params, cache, prompts[:, -1:], LM_PROMPT), port,
                        card, arch, "decode step")
             del cache
         out[kernel] = {"launches": launches[kernel],
@@ -1090,6 +1128,327 @@ def phase9(dev, card: str) -> dict:
         del params, kl, rl, k_steps, r_steps
         torch.cuda.empty_cache()
     return out
+
+
+def fedavg_bound_ms(C: int, N: int, esize: int) -> tuple[float, str]:
+    """K11 reads the (C, N) leaf once and writes (N,), in its dtype (the C
+    weights and den are negligible); one multiply and one add per element
+    read."""
+    return roofline((C + 1) * N * esize, 2 * C * N)
+
+
+def kernel_device_ms(fn, kernel: str) -> float | None:
+    """Total device time (ms) of the CUDA kernel named ``kernel`` over one
+    call of ``fn``, from a profiler trace (None when the trace has none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 if total > 0 else None
+
+
+def phase10a(dev, card: str, largest_leaf: int) -> dict:
+    """K11 against its plain version, bitwise, over the ragged cases; times
+    at the main path's largest leaf with C = 2. -> K11's fields."""
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    cases = 0
+    for C in FEDAVG_C:
+        for N in FEDAVG_N:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((C, N), generator=g, device=dev).to(dt)
+                w = torch.rand(C, generator=g, device=dev)
+                alt = (torch.arange(C, device=dev) % 2 == 0).float()
+                for m in (torch.ones(C, device=dev), alt, torch.zeros(C, device=dev)):
+                    kern = ops.fedavg_masked_mean(x, w, m)
+                    plain = ops.fedavg_masked_mean(x, w, m, impl="ref")
+                    torch.cuda.synchronize()
+                    check(kern.dtype == dt and torch.equal(kern, plain) and
+                          torch.equal(kern.view(torch.int16 if dt == torch.bfloat16 else torch.int32),
+                                      plain.view(torch.int16 if dt == torch.bfloat16 else torch.int32)),
+                          f"fedavg_masked_mean C={C} N={N} {dt} mask {m.tolist()}: kernel != plain")
+                    if not m.any():
+                        check(not kern.float().abs().any(), "an all-zero mask must give 0")
+                    cases += 1
+    print(f"phase10a K11 fedavg_masked_mean: {cases} cases bitwise equal to the plain version "
+          f"(C in {FEDAVG_C}, N in {FEDAVG_N}, f32 and bf16, full / alternating / all-zero masks)"
+          f"  [{card}]", flush=True)
+    C, N = 2, largest_leaf
+    x = torch.randn((C, N), generator=g, device=dev)
+    w = torch.full((C,), 0.5, device=dev)
+    m = torch.ones(C, device=dev)
+    wm, den = kfedavg.weighted_mask(w, m)
+    k_ms = time_ms(lambda: ops.fedavg_masked_mean(x, w, m), reps=10)
+    d_ms = device_ms(lambda: ops.fedavg_masked_mean(x, w, m), "fedavg_kernel")
+    p_ms = time_ms(lambda: ops.fedavg_masked_mean(x, w, m, impl="ref"), reps=5, warmup=1)
+    l_ms = time_ms(lambda: torch.mv(x.t(), wm) / den, reps=10)
+    lib_err = float((torch.mv(x.t(), wm) / den - ops.fedavg_masked_mean(x, w, m)).abs().max())
+    bound, by = fedavg_bound_ms(C, N, 4)
+    print(f"phase10a K11 at the main path's largest leaf (C {C}, N {N}, f32): kernel_ms={k_ms:.4f} "
+          f"device_ms={d_ms} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} (torch.mv(x.t(), wm) / den, "
+          f"yardstick only; max |mv - kernel| {lib_err:.3e}) bound_ms={bound:.4f} ({by})  [{card}]",
+          flush=True)
+    del x
+    return {"cases": cases, "max_abs_err": 0.0, "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": bound, "bound_by": by}
+
+
+def phase10b(dev, card: str) -> None:
+    """Gradients through K9 and K10 at full width: a one-layer qwen3-1.7b and
+    a one-layer mamba2-1.3b (full width, embedding and CE included), batch
+    1 x GRAD_SEQ, f32, kernel branch against plain branch on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+
+    for arch, counter in (("qwen3-1.7b", kflash.flash_attention),
+                          ("mamba2-1.3b", kssd.ssd_chunk_scan)):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=1)
+        kcfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+        rcfg = dataclasses.replace(cfg, attention_impl="ref", ssm_impl="ref")
+        weights = P.init_params(T.template(cfg), torch.Generator(device=dev).manual_seed(0))
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, GRAD_SEQ))).to(dev)
+
+        def run(c):
+            p = P.map_tree(lambda w: w.clone().requires_grad_(True), weights)
+            loss, _ = T.loss_fn(c, p, {"tokens": toks})
+            return loss.detach(), torch.autograd.grad(loss, [w for _, w in P.flatten_with_paths(p)])
+
+        counter.launches = 0
+        lk, gk = run(kcfg)
+        torch.cuda.synchronize()
+        launches = counter.launches
+        check(launches == 2, f"{arch}: {launches} kernel launches in one checkpointed layer's "
+                             f"forward and backward (expected 2: the forward and its recompute)")
+        lr, gr = run(rcfg)
+        check(bool(torch.isfinite(lk)) and abs(float(lk - lr)) <= GRAD_LOSS_RTOL * abs(float(lr)),
+              f"{arch}: kernel loss {float(lk)} != plain loss {float(lr)} at rtol {GRAD_LOSS_RTOL}")
+        worst, scale = 0.0, 0.0
+        for (path, _), a, b in zip(P.flatten_with_paths(weights), gk, gr):
+            check(torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+                  f"{arch}: grad {path} kernel != plain at rtol {GRAD_RTOL} / atol {GRAD_ATOL} "
+                  f"(max gap {float((a - b).abs().max()):.3e})")
+            worst = max(worst, float((a - b).abs().max()))
+            scale = max(scale, float(b.abs().max()))
+        print(f"phase10b {arch} one full-width layer, batch 1 x {GRAD_SEQ}, f32: loss kernel "
+              f"{float(lk)!r} plain {float(lr)!r} (rel gap {abs(float(lk - lr)) / abs(float(lr)):.3e},"
+              f" tol {GRAD_LOSS_RTOL}); grads max gap {worst:.3e} (largest grad {scale:.3e}; rtol "
+              f"{GRAD_RTOL} / atol {GRAD_ATOL}); {launches} launches  [{card}]", flush=True)
+        del weights, gk, gr
+        torch.cuda.empty_cache()
+
+
+def phase10c(dev, card: str) -> None:
+    """One masked adamw eq6 round of the reduced qwen3-1.7b at seq 128 (the
+    K9 branch) on the card and on the host from one state, at the CPU
+    tests' bounds (tests/test_torch_lm_train.py): loss rtol 1e-5; params at
+    rtol 1e-4 / atol 1e-5 but for fewer than 0.05% of elements, all within
+    2 E lr (adamw's sign flips near zero gradients); prev_sums rtol 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), attention_impl="kernel")
+    fed = FedConfig(n_clients=3, local_steps=2, aggregation="eq6", topn=1, participation="masked",
+                    agg_impl="kernel")
+    lr = 3e-3
+    batch = next(fed_batches(cfg, fed, batch=2, seq=128))
+    m = np.array([1, 0, 1], np.float32)
+    host0 = rounds.make_state(cfg, fed, adamw(lr), torch.Generator().manual_seed(0), "cpu")
+    out = []
+    kflash.flash_attention.launches = 0
+    for where in (dev, torch.device("cpu")):
+        st = {k: ({kk: vv.clone().to(where) for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.clone().to(where) if torch.is_tensor(v) else v) for k, v in host0.items()}
+        st, met = rounds.build_fed_round(cfg, fed, adamw(lr))(
+            st, rounds.to_device(batch, where), rounds.participation_input(fed, m, m / m.sum()))
+        out.append((float(met["loss"]), st["params"].cpu(), st["agg"]["prev_sums"].cpu()))
+    (lc, pc, sc), (lh, ph, sh) = out
+    launches = kflash.flash_attention.launches
+    check(launches == 2 * cfg.n_layers * fed.local_steps * 2,
+          f"10c: {launches} K9 launches (2 per layer per step, 2 clients, 2 steps)")
+    gap = (pc - ph).abs()
+    outside = gap > 1e-5 + 1e-4 * ph.abs()
+    check(np.isfinite(lc) and abs(lc - lh) <= 1e-5 * abs(lh), f"10c: card loss {lc} != host {lh}")
+    check(float(outside.float().mean()) < 5e-4 and float(gap.max()) <= 2 * fed.local_steps * lr,
+          f"10c: {int(outside.sum())} params outside rtol 1e-4 / atol 1e-5, max gap {float(gap.max())}")
+    check(torch.allclose(sc, sh, rtol=1e-3), "10c: prev_sums card != host at rtol 1e-3")
+    print(f"phase10c one masked adamw eq6 round, reduced qwen3-1.7b, seq 128 ({launches} K9 launches "
+          f"on the card): card loss {lc!r} host loss {lh!r} (rel gap {abs(lc - lh) / abs(lh):.3e}); "
+          f"params max gap {float(gap.max()):.3e}, {int(outside.sum())} of {gap.numel()} outside "
+          f"rtol 1e-4 / atol 1e-5; prev_sums max rel gap "
+          f"{float(((sc - sh).abs() / sh.abs()).max()):.3e}  [{card}]", flush=True)
+
+
+class _Timed:
+    """Wrap ``cls.name`` for the duration of a ``with``: CUDA events around
+    every call, elapsed ms appended to ``self.ms``."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.ms = cls, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+
+        def wrapped(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*a, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def phase10de(dev, card: str) -> dict:
+    """(d) The launcher's LM training path at full width and depth for
+    qwen3-1.7b and mamba2-1.3b; (e) the compression demo's tail on qwen3's
+    trained state. -> launch counts and K11's main-path fields."""
+    from repro_torch.core import packing
+    from repro_torch.core.aggregators.eq6 import Eq6
+    from repro_torch.core.server import FLServer
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import pack
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+
+    counters = {"flash_attention": kflash.flash_attention, "ssd_chunk_scan": kssd.ssd_chunk_scan,
+                "packed_bucket_reduce": pack.packed_bucket_reduce}
+    out: dict = {}
+    for arch, kernel in LM_ARCHS:
+        args = train.build_parser().parse_args([
+            "--task", "lm", "--arch", arch, "--full-size", "--clients", str(LM_TRAIN_CLIENTS),
+            "--rounds", str(LM_TRAIN_ROUNDS), "--batch", str(LM_TRAIN_BATCH), "--seq",
+            str(LM_TRAIN_SEQ), "--device", str(dev)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with _Timed(FLServer, "run_round") as rt, _Timed(Eq6, "aggregate") as at:
+            t0 = time.perf_counter()
+            run = train.train_lm(args, log=lambda msg: print(f"phase10d {arch} {msg}", flush=True))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        server = run.server
+        cfg, fed = server.cfg, server.fed
+        losses = [r.loss for r in server.history]
+        check(len(losses) == LM_TRAIN_ROUNDS and all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        steps = LM_TRAIN_ROUNDS * fed.n_clients * fed.local_steps  # full participation
+        want = 2 * cfg.n_layers * steps
+        check(launches[kernel] == want and sum(launches[k] for k in
+                                              ("flash_attention", "ssd_chunk_scan")) == want,
+              f"{arch}: {launches} in {steps} local steps of {cfg.n_layers} checkpointed layers "
+              f"(expected {want} {kernel})")
+        check(launches["packed_bucket_reduce"] == LM_TRAIN_ROUNDS,
+              f"{arch}: K1 launched {launches['packed_bucket_reduce']} times in {LM_TRAIN_ROUNDS} rounds")
+        check(peak < LM_TRAIN_PEAK_GIB, f"{arch}: peak device memory {peak:.2f} GiB "
+                                        f"(limit {LM_TRAIN_PEAK_GIB})")
+        n = server.state["params"].shape[1]
+        print(f"phase10d {arch} full width and depth ({n} params, f32, adamw {args.lr}), "
+              f"{fed.n_clients} clients x batch {args.batch} x {args.seq} tokens, eq6 top-{fed.topn}, "
+              f"{LM_TRAIN_ROUNDS} rounds in {wall:.2f} s through the launcher: loss "
+              f"{' '.join(repr(v) for v in losses)}; launches {launches} (expected {want} {kernel}: "
+              f"2 per layer per local step with recompute, {LM_TRAIN_ROUNDS} K1)  [{card}]", flush=True)
+        print(f"phase10d {arch} ms_per_round={' '.join(f'{v:.3f}' for v in rt.ms)} "
+              f"aggregation_ms={' '.join(f'{v:.3f}' for v in at.ms)} peak_device_memory_gib={peak:.2f}"
+              f"  [{card}]", flush=True)
+        gen = fed_batches(cfg, fed, batch=args.batch, seq=args.seq, seed=1)
+        before = server.state["agg"]["prev_sums"]  # the profiled round's starting sums
+        profile_lm(lambda: server.run_round(next(gen)),
+                   {"K9/K10 (port)": ("flash_attention_kernel", "ssd_chunk_scan_kernel"),
+                    "K1 (port)": ("bucket_reduce_kernel",)}, card, arch, "round", "phase10d", host=True)
+        out[kernel] = {"launches": launches[kernel],
+                       "main_path": f"train --task lm --arch {arch} --full-size --clients "
+                                    f"{LM_TRAIN_CLIENTS} --rounds {LM_TRAIN_ROUNDS} --batch "
+                                    f"{LM_TRAIN_BATCH} --seq {LM_TRAIN_SEQ}"}
+        out["packed_bucket_reduce"] = out.get("packed_bucket_reduce", 0) + launches["packed_bucket_reduce"]
+
+        if arch == "qwen3-1.7b":  # (e) the demo's tail on this state
+            out.update(phase10e(dev, card, server, before))
+        del run, server, gen
+        packing.bucket_ids_on.cache_clear()
+        packing.bucket_ids.cache_clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase10e(dev, card: str, server, before) -> dict:
+    """The compression demo's tail (``repro_torch.examples.compression_demo.
+    report``) on the full-width qwen3-1.7b state that phase 10d trained:
+    Eq. 6 scores and uploads, one K1 launch, ``fedavg_tree`` with one K11
+    launch per leaf, bitwise equal to ``impl="ref"`` on the card. The
+    optimizer moments (27.5 GB at C = 2) are freed first: the tail adds the
+    client-stacked copy (13.8 GB) and two aggregated trees (6.9 GB each)."""
+    from repro_torch.examples import compression_demo
+    from repro_torch.kernels import fedavg as kfedavg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pack
+    from repro_torch.models.params import flatten_with_paths
+
+    server.state = {**server.state, "opt": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, fed = server.cfg, server.fed
+    pack.packed_bucket_reduce.launches = kfedavg.fedavg_masked_mean.launches = 0
+    lines: list[str] = []
+    t0 = time.perf_counter()
+    rep = compression_demo.report(cfg, fed, before, server.state, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k11 = pack.packed_bucket_reduce.launches, kfedavg.fedavg_masked_mean.launches
+    for line in "\n".join(lines).splitlines():
+        print(f"phase10e demo | {line}", flush=True)
+    n_leaves = len(list(flatten_with_paths(rep["stacked"])))
+    check(k1 == 1, f"10e: K1 launched {k1} times in the demo's tail")
+    check(k11 == n_leaves, f"10e: K11 launched {k11} times for {n_leaves} leaves")
+    check(rep["masks"].any(dim=1).all(), "10e: a client uploads no bucket")
+    want = ops.fedavg_tree(rep["stacked"], rep["weights"], rep["leaf_masks"], impl="ref")
+    torch.cuda.synchronize()
+    for (path, a), (_, b) in zip(flatten_with_paths(rep["agg"]), flatten_with_paths(want)):
+        check(same_bits(a, b), f"10e: fedavg_tree leaf {path}: kernel != plain")
+        check(bool(torch.isfinite(a).all()), f"10e: fedavg_tree leaf {path} not finite")
+    del want
+    args = (rep["stacked"], rep["weights"], rep["leaf_masks"])
+    tree_ms = time_ms(lambda: ops.fedavg_tree(*args), reps=3, warmup=1)
+    tree_device_ms = kernel_device_ms(lambda: ops.fedavg_tree(*args), "fedavg_kernel")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    uploads = {c: rep["masks"][c].nonzero()[:, 0].tolist() for c in range(fed.n_clients)}
+    print(f"phase10e demo tail on qwen3-1.7b's trained state ({n_leaves} leaves, C {fed.n_clients}): "
+          f"uploads {uploads}, {rep['uploaded']} elements uploaded; K1 {k1} launch, K11 {k11} "
+          f"launches, fedavg_tree bitwise equal to impl='ref' on every leaf; tail {wall:.2f} s; "
+          f"fedavg_tree {tree_ms:.3f} ms (events), K11 device {tree_device_ms} ms in total; peak "
+          f"device memory {peak:.2f} GiB (optimizer moments freed)  [{card}]", flush=True)
+    del rep, args
+    return {"fedavg_masked_mean": {
+        "launches": k11, "tree_ms": tree_ms, "tree_device_ms": tree_device_ms,
+        "main_path": "examples.compression_demo.report on phase 10d's qwen3-1.7b state",
+    }, "packed_bucket_reduce_demo": k1}
 
 
 def main() -> None:
@@ -1295,6 +1654,16 @@ def main() -> None:
     k_stats.update(phase8(dev, card))
     lm_launches = phase9(dev, card)
 
+    # ---- phase 10: K11, gradients through K9/K10, LM training, the demo ---
+    from repro_torch.core import packing
+    from repro_torch.models import transformer as T
+    qcfg = get_arch("qwen3-1.7b")
+    largest = max(sl.size for sl in packing.build_pack_spec(qcfg, T.template(qcfg)).slots)
+    k_stats["fedavg_masked_mean"] = phase10a(dev, card, largest)
+    phase10b(dev, card)
+    phase10c(dev, card)
+    lm_train = phase10de(dev, card)
+
     kernels = [{
         "name": "nms_keep",
         "route": "cuda",
@@ -1324,6 +1693,9 @@ def main() -> None:
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
             "cases": st["cases"],
         })
+        if kernel == "packed_bucket_reduce":
+            kernels[-1]["launches_lm_training"] = lm_train["packed_bucket_reduce"]
+            kernels[-1]["launches_demo"] = lm_train["packed_bucket_reduce_demo"]
     for kernel, source, replaces, path in (
         ("quant8_reduce", "src/repro_torch/kernels/csrc/quant_reduce.cu",
          "src/repro/kernels/pack.py:285", "quant8"),
@@ -1356,7 +1728,20 @@ def main() -> None:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": st["library_ms"], "cases": st["cases"],
+            "launches_training": lm_train[kernel]["launches"],
+            "training_path": lm_train[kernel]["main_path"],
         })
+    st, main_path = k_stats["fedavg_masked_mean"], lm_train["fedavg_masked_mean"]
+    kernels.append({
+        "name": "fedavg_masked_mean", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedavg.cu",
+        "replaces": "src/repro/kernels/fedavg.py:36",
+        "launches": main_path["launches"], "main_path": main_path["main_path"],
+        "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
+        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"], "cases": st["cases"],
+        "tree_ms": main_path["tree_ms"], "tree_device_ms": main_path["tree_device_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

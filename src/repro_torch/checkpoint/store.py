@@ -42,11 +42,16 @@ class ObjectStore:
             os.fsync(f.fileno())
         os.replace(tmp, self.manifest_path)
 
-    def put_model(self, task_id: str, round_idx: int, model: nn.Module, meta: dict | None = None) -> str:
-        """Store ``model``'s weights in the reference's HWIO layout under its
-        param paths (``stages/0/down``)."""
+    def put_model(self, task_id: str, round_idx: int, model, meta: dict | None = None) -> str:
+        """Store a model under its param paths: a :class:`FedYOLOv3` module's
+        weights in the reference's HWIO layout (``stages/0/down``), an LM's
+        param tree as it is (``layers/attn/wq``)."""
+        if isinstance(model, nn.Module):
+            arrays = dict(flatten_with_paths(convert.to_reference(model)))
+        else:
+            arrays = dict(flatten_with_paths(convert.lm_params_to_reference(model)))
         buf = io.BytesIO()
-        np.savez_compressed(buf, **dict(flatten_with_paths(convert.to_reference(model))))
+        np.savez_compressed(buf, **arrays)
         blob = buf.getvalue()
         key = hashlib.sha256(blob).hexdigest()
         obj = self.root / "objects" / key

@@ -1,6 +1,6 @@
 """Eq. 6 layer-contribution scores (port of ``repro/core/compression.py``:
 ``n_score_buckets``, ``leaf_layer_ids``, ``contribution_scores``,
-``topn_mask``).
+``topn_mask``, ``compression_ratio``).
 
 Eq. 6 of the paper: v(j) = | sum(M_j^{i,k}) - sum(M_j^{i,k-1}) |, the signed
 sums of all parameters in layer j across consecutive rounds. Each client
@@ -11,7 +11,9 @@ all unstacked tensors share one extra bucket at index ``n_layers``. Every
 fedyolov3 leaf has axes ``(None, None, None, None)``, so all of its
 parameters fall in that one "misc" bucket: with ``topn >= 1`` the ``>= kth``
 tie rule then uploads every bucket, and Eq. 6 on fedyolov3 is a masked
-weighted mean. The port keeps that reference behaviour.
+weighted mean. The port keeps that reference behaviour. An LM's layer
+stacks (axes ``("layer", ...)``) give one bucket per layer, its embedding
+and final norm the misc bucket.
 """
 from __future__ import annotations
 
@@ -51,3 +53,8 @@ def topn_mask(scores: torch.Tensor, n: int) -> torch.Tensor:
     n = min(n, scores.shape[-1])
     kth = torch.topk(scores, n, dim=-1).values[..., -1:]
     return scores >= kth
+
+
+def compression_ratio(cfg, n: int) -> float:
+    """Fraction of layer buckets uploaded under top-n selection."""
+    return n / n_score_buckets(cfg)

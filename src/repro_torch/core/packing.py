@@ -94,9 +94,14 @@ def bucket_ids(spec: PackSpec) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def bucket_ids_on(spec: PackSpec, device: torch.device) -> torch.Tensor:
-    """:func:`bucket_ids` as an int32 tensor on ``device``, copied there once
-    per process rather than once per round."""
-    return torch.from_numpy(bucket_ids(spec)).to(device)
+    """:func:`bucket_ids` as an int32 tensor on ``device``, built there once
+    per process: a full-width LM has 1.7 G ids (6.9 GB), which a host build
+    and copy took seconds over."""
+    return torch.cat([
+        (torch.arange(s.n_buckets, dtype=torch.int32, device=device) + s.bucket_off)
+        .repeat_interleave(s.per_bucket)
+        for s in spec.slots
+    ])
 
 
 # ---------------------------------------------------------------------------
@@ -130,12 +135,13 @@ def unpack_views(spec: PackSpec, packed: torch.Tensor, like: PyTree) -> PyTree:
     buffer has (``(C,)`` for the round state, none for one client's row).
     No copy: writes through a view land in the buffer, and autograd hands a
     leaf's gradient back into the buffer's layout. ``like`` gives only the
-    tree structure (a ParamInfo template or any matching tree)."""
+    tree structure (a ParamInfo template or any matching tree). The views
+    come from one ``split``, whose backward concatenates the leaves'
+    gradients once (slicing per leaf would zero-fill a full-size gradient
+    per leaf)."""
     lead = packed.shape[:-1]
-    views = {
-        s.name: packed[..., s.offset: s.offset + s.size].view(lead + s.shape)
-        for s in spec.slots
-    }
+    parts = torch.split(packed, [s.size for s in spec.slots], dim=-1)
+    views = {s.name: part.view(lead + s.shape) for s, part in zip(spec.slots, parts)}
     return unflatten(like, {path: views[path] for path, _ in flatten_with_paths(like)})
 
 
@@ -294,7 +300,8 @@ def masked_bucket_mean(
             packed, wmask.float().contiguous(), ids,
             None if mask is None else mask.float().contiguous(),
         )
-        return num / torch.clamp_min(den, 1e-12), den_b
+        # in place: at full width num and den are 6.9 GB each
+        return num.div_(den.clamp_min_(1e-12)), den_b
     if impl != "ref":
         raise ValueError(f"agg_impl={impl!r}; expected ref | kernel")
     wn = wm / torch.clamp_min(den_b, 1e-12)[None, :]
@@ -335,8 +342,10 @@ def dequant_blocks(xb: torch.Tensor, q_max: float, u: torch.Tensor | None = None
 def exact_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as one IEEE division on every device: torch on CUDA turns a
     division by a Python scalar into a multiply by its rounded reciprocal,
-    which is not bit-equal; a 0-d tensor divisor on x's device is not."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    which is not bit-equal; a 0-d tensor divisor on x's device is not. It is
+    filled on the device (``torch.full``): ``torch.tensor`` would copy from
+    the host and block until the device's queue drains."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _pad_cols(x: torch.Tensor, block: int) -> tuple[torch.Tensor, int]:

@@ -7,9 +7,12 @@ whole run, and each optimizer moment is one more ``(C, N_total)`` buffer in
 the same layout (``optim``). One round:
 
 1. each client that takes part trains E local steps on views of its own row
-   (``packing.unpack_views``): the functional ``yolov3.forward`` runs over
+   (``packing.unpack_views``): the functional model (``yolov3.yolo_loss``,
+   or ``transformer.loss_fn`` for the dense and ssm LM families) runs over
    the views, autograd returns the gradient in the packed layout, and the
-   optimizer updates the row and its moment rows in place. The reference
+   optimizer updates the row and its moment rows in place. With
+   ``FedConfig.microbatches = m > 1`` each step splits its batch into m
+   parts and averages their gradients (and losses). The reference
    vmaps the clients and scans the steps inside one donated jit; here the
    clients are a loop and the steps a Python loop, and the in-place update
    of the one buffer takes the place of donation;
@@ -22,7 +25,8 @@ Participation comes from the Task Scheduler as NumPy (``participation_input``):
 and report loss 0. Either way the mask, when given, rides into the
 aggregation and the mean loss (a bare weight vector means mask ``None``).
 Compact participation, the fedsgd topology and the sharded client axis
-(slice 3b), and the tree layout (slice 9) raise ``NotImplementedError``.
+(slice 3b), and the tree layout (slice 9) raise ``NotImplementedError``, as
+do the LM families other than dense and ssm (slice 7c).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.core import aggregators, packing
 from repro_torch.models import params as mp
-from repro_torch.models import yolov3
+from repro_torch.models import transformer, yolov3
 from repro_torch.optim import Optimizer
 
 PyTree = Any
@@ -92,15 +96,17 @@ class FedConfig:
 
 
 def loss_for(cfg) -> Callable:
-    if cfg.family != "yolo":
-        raise NotImplementedError(f"{cfg.name}: LM training is ported in slice 7b")
-    return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
+    """``(params, batch) -> (loss, metrics)`` for the config's family."""
+    if cfg.family == "yolo":
+        return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
+    transformer.check_family(cfg)
+    return lambda params, batch: transformer.loss_fn(cfg, params, batch)
 
 
 def make_template(cfg) -> PyTree:
-    if cfg.family != "yolo":
-        raise NotImplementedError(f"{cfg.name}: LM training is ported in slice 7b")
-    return yolov3.template(cfg)
+    if cfg.family == "yolo":
+        return yolov3.template(cfg)
+    return transformer.template(cfg)
 
 
 def make_aggregator(cfg, fed: FedConfig) -> aggregators.Aggregator:
@@ -126,8 +132,8 @@ def _check_ported(fed: FedConfig) -> None:
                                   "(with the fedsgd topology and the sharded client axis)")
     if fed.participation not in ("full", "masked"):
         raise ValueError(f"unknown participation {fed.participation!r}; expected full|masked|compact")
-    if fed.microbatches != 1:
-        raise NotImplementedError("microbatched local steps come with LM training in slice 7b")
+    if fed.microbatches < 1:
+        raise ValueError(f"microbatches={fed.microbatches} must be >= 1")
     if fed.agg_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown agg_impl {fed.agg_impl!r}; expected ref|kernel")
 
@@ -160,8 +166,8 @@ def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Gener
 
 
 def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
-    """Edge helper: the client-stacked HWIO param tree of a flat state (one
-    copy)."""
+    """Edge helper: the client-stacked param tree of a flat state (one copy;
+    HWIO for fedyolov3, the template's layout for an LM)."""
     tpl = make_template(cfg)
     return packing.unpack(packing.build_pack_spec(cfg, tpl), state["params"], tpl)
 
@@ -205,7 +211,8 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
     """Returns ``fed_round(state, batch, part) -> (state, metrics)``.
 
     batch: ``{"images" (C, E, b, H, W, 3), "targets": per scale {"obj",
-    "box", "cls"} (C, E, b, ...)}`` on the state's device (``to_device``).
+    "box", "cls"} (C, E, b, ...)}`` for detection, ``{"tokens" (C, E, b,
+    S)}`` for an LM, on the state's device (``to_device``).
     part: a bare (C,) normalized weight vector (full participation) or the
     ``participation_input`` dict. metrics: ``{"loss": participant mean,
     "client_loss": (C,)}``, tensors on the device (no host sync).
@@ -225,11 +232,33 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
     def grads_of(row: torch.Tensor, step_batch: PyTree):
         """(loss, packed gradient) of one local step at ``row``: the loss runs
         over views of a detached alias of the row, so the gradient comes
-        back as one (N_total,) tensor in the packed layout."""
+        back as one (N_total,) tensor in the packed layout. With m
+        microbatches: the sum of the m gradients from zero, then one true
+        division by m, and the mean loss (the reference's scan)."""
         flat = row.detach().requires_grad_(True)
-        loss, _ = loss_fn(packing.unpack_views(spec, flat, tpl), step_batch)
-        (g,) = torch.autograd.grad(loss, flat)
-        return loss.detach(), g
+        views = packing.unpack_views(spec, flat, tpl)
+        m = fed.microbatches
+        if m <= 1:
+            loss, _ = loss_fn(views, step_batch)
+            (g,) = torch.autograd.grad(loss, flat)
+            return loss.detach(), g
+
+        def split(x):
+            if x.shape[0] % m:
+                raise ValueError(f"a local batch of {x.shape[0]} does not split into {m} "
+                                 f"microbatches")
+            return x.reshape((m, x.shape[0] // m) + x.shape[1:])
+
+        micro = mp.map_tree(split, step_batch)
+        tot = torch.zeros((), dtype=torch.float32, device=row.device)
+        g_sum = torch.zeros_like(row)
+        for i in range(m):
+            loss, _ = loss_fn(views, mp.map_tree(lambda x: x[i], micro))
+            (g,) = torch.autograd.grad(loss, flat)
+            tot = tot + loss.detach()
+            g_sum.add_(g)
+            del g
+        return packing.exact_div(tot, float(m)), packing.exact_div(g_sum, float(m))
 
     def local_train(c: int, packed: torch.Tensor, opt: dict, batch: PyTree) -> torch.Tensor:
         """Client c's E local steps on its row, in place -> mean step loss."""

@@ -9,7 +9,9 @@ and weight vectors, the selected clients train and the registered
 aggregator merges them; the participants' losses feed the scheduler's
 quality EMA. :meth:`FLServer.evaluate_round` scores the global model on
 each client's holdout (mAP@0.5 through the IoU and NMS kernels) and feeds
-the per-client mAP back into the same EMA.
+the per-client mAP back into the same EMA; it is detection-only. An LM task
+(qwen3-1.7b, mamba2-1.3b) runs the same rounds, scheduler and COS
+checkpoints; its global model is a param tree.
 
 The async control plane (``mode="async"``) and the shared simulated clock
 belong to later slices.
@@ -27,6 +29,7 @@ from repro_torch import device as D
 from repro_torch.checkpoint import ObjectStore
 from repro_torch.core import aggregators, explorer, packing, rounds
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
+from repro_torch.models.params import map_tree
 from repro_torch.models.yolov3 import FedYOLOv3
 from repro_torch.optim import Optimizer
 
@@ -86,7 +89,11 @@ class FLServer:
         # registry dispatch: an unknown mode or an unported configuration
         # fails here, before any state is allocated
         self.aggregator = rounds.make_aggregator(cfg, fed)
-        self.state = rounds.make_state(cfg, fed, optimizer, torch.Generator().manual_seed(seed),
+        # an LM's initial model is drawn on the server's device (a full-width
+        # model is 1.7 B values); fedyolov3's on the host, as before
+        gen_device = "cpu" if cfg.family == "yolo" else self.device
+        self.state = rounds.make_state(cfg, fed, optimizer,
+                                       torch.Generator(device=gen_device).manual_seed(seed),
                                        self.device)
         self._fed_round = rounds.build_fed_round(cfg, fed, optimizer)
         self.history: list[RoundRecord] = []
@@ -98,12 +105,17 @@ class FLServer:
         """Every mode this server could be configured with."""
         return aggregators.names()
 
-    def global_params(self) -> FedYOLOv3:
-        """The dispatchable global model: a fresh :class:`FedYOLOv3` on the
-        server's device built from row 0 of the packed state (every row
-        holds the global model after a sync round). This is the pack/unpack
-        edge: checkpoint PUT, evaluation and dispatch to serving."""
+    def global_params(self) -> FedYOLOv3 | PyTree:
+        """The dispatchable global model from row 0 of the packed state
+        (every row holds the global model after a sync round): a fresh
+        :class:`FedYOLOv3` on the server's device, or for an LM a param tree
+        copied out of the row (the reference's one-row unpack). This is the
+        pack/unpack edge: checkpoint PUT, evaluation and dispatch to
+        serving."""
         spec, tpl = self.aggregator.ctx.spec, self.aggregator.ctx.template
+        if self.cfg.family != "yolo":
+            tree = packing.unpack(spec, self.state["params"][:1], tpl)
+            return map_tree(lambda x: x[0], tree)
         views = packing.unpack_views(spec, self.state["params"][0], tpl)
         with self.device:
             return FedYOLOv3(self.cfg, weights=views).eval()
@@ -142,6 +154,9 @@ class FLServer:
         "gt_boxes"/"gt_cls"/"gt_valid" (C, B, G, ...)}, NumPy or tensors.
         The per-client mAP feeds the scheduler's quality EMA."""
         from repro_torch.core import detection  # only detection tasks need it
+
+        if self.cfg.family != "yolo":
+            raise ValueError(f"{self.cfg.name}: evaluate_round scores detection tasks (mAP@0.5)")
 
         if self._evaluator is None or self._evaluator[0] != max_detections:
             self._evaluator = (max_detections,

@@ -1,9 +1,10 @@
-"""Host-side detection data (port of ``repro/data/pipeline.py::detection_suite``).
+"""Host-side batching (port of ``repro/data/pipeline.py``): the detection
+suite, the partitioned token pool and ``fed_batches``' text and
+partitioned-yolo branches.
 
 NumPy only: the same seed gives bit-identical batches to the reference's.
 The batches stay NumPy; the caller moves them to its device
-(``core.rounds.to_device``). The token and audio pipelines belong to later
-slices.
+(``core.rounds.to_device``). The audio and vlm branches belong to slice 7c.
 """
 from __future__ import annotations
 
@@ -13,6 +14,41 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.rounds import FedConfig
 from repro_torch.data import darknet, partition, synthetic
 from repro_torch.models.yolov3 import ANCHORS, grid_sizes
+
+
+def partitioned_token_batches(
+    vocab: int,
+    n_clients: int,
+    local_steps: int,
+    batch: int,
+    seq: int,
+    scenario: str = "dirichlet",
+    seed: int = 0,
+    *,
+    alpha: float = 0.5,
+    n_sources: int = 8,
+    pool_per_source: int = 64,
+):
+    """Token batches drawn from a partitioned labeled pool.
+
+    A pool of sequences is pre-sampled from ``n_sources`` distinct Markov
+    chains (label = source id), split across clients by the named
+    ``data.partition`` scenario, and each client then draws batches from its
+    own index set only. Yields {"tokens": (C, E, b, S)}.
+    """
+    sources = [synthetic.MarkovTokens(vocab, seed=seed + s) for s in range(n_sources)]
+    rng = np.random.default_rng(seed + 101)
+    seqs = np.concatenate([s.sample(rng, pool_per_source, seq) for s in sources])
+    labels = np.repeat(np.arange(n_sources), pool_per_source)
+    parts = partition.make_scenario(
+        scenario, labels, n_clients, np.random.default_rng(seed + 202), alpha=alpha
+    )
+    draw = np.random.default_rng(seed + 303)
+    while True:
+        idx = np.stack(
+            [draw.choice(parts[c], size=(local_steps, batch)) for c in range(n_clients)]
+        )
+        yield {"tokens": seqs[idx].astype(np.int32)}  # (C, E, b, S)
 
 
 def _scene_targets(pool: dict, idx: np.ndarray, grids: list[int], cfg: ArchConfig):
@@ -97,3 +133,28 @@ def detection_suite(
             yield {"images": ims, "targets": targets}
 
     return train_batches(), eval_batch, stats
+
+
+def fed_batches(cfg: ArchConfig, fed: FedConfig, batch: int, seq: int, seed: int = 0,
+                img_size: int = 96, partition_name: str = "stream", alpha: float = 0.5):
+    """Client-stacked batches (C, E, b, ...) for ``core.rounds.build_fed_round``.
+
+    Text archs: per-client Markov drift (``"stream"``) or a ``data.partition``
+    scenario over a labeled pool (:func:`partitioned_token_batches`); yolo
+    archs under a scenario: :func:`detection_suite`'s training batches.
+    """
+    C, E = fed.n_clients, fed.local_steps
+    if cfg.modality in ("audio", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.modality} batches are ported in slice 7c")
+    if partition_name != "stream":
+        if cfg.family == "yolo":
+            gen, _, _ = detection_suite(cfg, fed, batch, img_size, partition_name, seed, alpha=alpha)
+            yield from gen
+            return
+        yield from partitioned_token_batches(cfg.vocab_size, C, E, batch, seq, partition_name,
+                                             seed, alpha=alpha)
+        return
+    if cfg.family == "yolo":
+        raise NotImplementedError("fed_batches' per-step detection scenes are not ported; "
+                                  "detection trains on detection_suite's batches")
+    yield from synthetic.token_batches(cfg.vocab_size, C, E, batch, seq, seed)

@@ -1,10 +1,10 @@
-"""Synthetic detection scenes (port of the image half of
-``repro/data/synthetic.py``: ``scene_images``, ``boxes_to_arrays``,
-``detection_scene_pool``).
+"""Synthetic data (port of ``repro/data/synthetic.py``): detection scenes
+(``scene_images``, ``boxes_to_arrays``, ``detection_scene_pool``) and
+Markov token streams (``MarkovTokens``, ``token_batches``).
 
 A NumPy copy: the same ``np.random.default_rng`` seed gives bit-identical
-images and boxes to the reference's. The token and audio generators belong
-to later slices.
+images, boxes and tokens to the reference's. The audio generator belongs to
+slice 7c.
 """
 from __future__ import annotations
 
@@ -112,3 +112,41 @@ def detection_scene_pool(
         "gt_valid": gt_valid,
         "labels": labels,
     }
+
+
+class MarkovTokens:
+    """Order-1 Markov token source with client-dependent drift (non-IID)."""
+
+    def __init__(self, vocab: int, seed: int = 0, drift: float = 0.0):
+        rng = np.random.default_rng(seed)
+        k = min(vocab, 64)  # latent states
+        self.vocab = vocab
+        base = rng.dirichlet([0.3] * k, size=k)
+        if drift:
+            base = (1 - drift) * base + drift * rng.dirichlet([0.3] * k, size=k)
+        self.trans = base
+        self.emit = rng.integers(0, vocab, size=k)
+        self.k = k
+
+    def sample(self, rng: np.random.Generator, batch: int, seq: int) -> np.ndarray:
+        out = np.empty((batch, seq), np.int32)
+        state = rng.integers(0, self.k, size=batch)
+        for t in range(seq):
+            out[:, t] = self.emit[state] % self.vocab
+            u = rng.random((batch, 1))
+            state = (np.cumsum(self.trans[state], axis=1) > u).argmax(axis=1)
+        return out
+
+
+def token_batches(vocab: int, n_clients: int, local_steps: int, batch: int, seq: int,
+                  seed: int = 0, non_iid_drift: float = 0.5):
+    """Yields {"tokens": (C, E, b, S)} with per-client distributions."""
+    sources = [MarkovTokens(vocab, seed=seed + c, drift=non_iid_drift * c / max(n_clients - 1, 1))
+               for c in range(n_clients)]
+    rng = np.random.default_rng(seed + 999)
+    while True:
+        yield {
+            "tokens": np.stack(
+                [np.stack([s.sample(rng, batch, seq) for _ in range(local_steps)]) for s in sources]
+            )
+        }

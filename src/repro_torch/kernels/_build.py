@@ -2,8 +2,8 @@
 
 The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
 ``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``grouped_reduce.cu`` K6,
-``masked_sum.cu`` K8, ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10 and
-the shared ``errors.cu``) are compiled for ``sm_90a`` by
+``masked_sum.cu`` K8, ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10,
+``fedavg.cu`` K11 and the shared ``errors.cu``) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "quant_reduce.cu", "grouped_reduce.cu",
-           "masked_sum.cu", "flash_attention.cu", "ssd_scan.cu", "errors.cu")
+           "masked_sum.cu", "flash_attention.cu", "ssd_scan.cu", "fedavg.cu", "errors.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false"]
 
 _lock = threading.Lock()
@@ -59,6 +59,7 @@ def _load_locked() -> ctypes.CDLL:
         "masked_u32_sum_launch": [p, p, p, i, ll, p],
         "flash_attention_launch": [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), i, i, f, p],
         "ssd_chunk_scan_launch": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
+        "fedavg_masked_mean_launch": [p, p, p, p, i, i, ll, p],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)
@@ -88,3 +89,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         code = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     check(lib, code, name)
+
+
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and an input requires grad. The kernel
+    wrappers write into fresh buffers with no ``grad_fn``: called under
+    training they would drop the gradient silently. Training reaches K9 and
+    K10 through ``kernels.ops.flash_attention_trainable`` and
+    ``ssd_full_trainable``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} is a forward-only kernel wrapper and its output has no "
+                           f"gradient; train through kernels.ops.flash_attention_trainable or "
+                           f"ssd_full_trainable")

@@ -8,7 +8,8 @@ version ``kernels.ref.flash_attention``. A CUDA tensor never takes the plain
 version: the kernel launches or the call raises. The kernel reads q, k and v
 through their strides, so the model's (B, S, H, hd) projections need no
 copy, and it writes a (B, S, H, hd) buffer returned as its (B, H, S, hd)
-view. Like the TPU kernel it is a forward pass only.
+view. Like the TPU kernel it is a forward pass only; training reaches it
+through ``kernels.ops.flash_attention_trainable``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """q (B, H, S, hd), k/v (B, Hkv, S, hd), float32 or bfloat16 (one dtype)
     -> (B, H, S, hd) in q's dtype. On the card S must be a multiple of 64 and
     hd a multiple of 16 up to 128. Counts its CUDA launches in
-    ``flash_attention.launches``."""
+    ``flash_attention.launches``. A forward pass: under grad it raises
+    (``kernels.ops.flash_attention_trainable`` is the training form)."""
+    _build.forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, window)
     if q.device.type != "cuda":

@@ -1,14 +1,15 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro/kernels/ref.py::nms_np``, ``pairwise_iou_np``, ``_corners_np`` and
 ``packed_bucket_reduce``, of the fused transports K4, K6, K7, K8, and of the
-LM kernels K9 ``flash_attention`` and K10 ``ssd_chunk_scan``).
+LM kernels K9 ``flash_attention`` and K10 ``ssd_chunk_scan``, and of the
+per-leaf FedAvg K11 ``fedavg_masked_mean``).
 
 The detection versions are straight transcriptions of the reference's
 NumPy oracles, op for op in float32: every op is a plain IEEE
 add/sub/mul/div/min/max, each rounded on its own, so on the host they equal
 the oracles bit for bit. :func:`packed_bucket_reduce`, :func:`quant8_reduce`,
-:func:`quant4_reduce`, :func:`grouped_reduce` and :func:`masked_u32_sum`
-are the reference's oracles written as the CUDA kernels' ordered client
+:func:`quant4_reduce`, :func:`grouped_reduce`, :func:`masked_u32_sum` and
+:func:`fedavg_masked_mean` are the reference's oracles written as the CUDA kernels' ordered client
 chains (``acc = d_0 w_0``, then ``acc = acc + d_c w_c``), so kernel and
 plain version agree bit for bit on the card. A wrapper in ``kernels.detect``
 or ``kernels.pack`` runs these for a tensor on the CPU; on the card they
@@ -188,7 +189,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     Hkv = k.shape[1]
     qg = q.reshape(B, Hkv, H // Hkv, S, hd).float()
     scores = torch.einsum("bkgsh,bkth->bkgst", qg, k.float())
-    scores = scores / torch.tensor(float(hd), device=q.device).sqrt()
+    # torch.full, not torch.tensor: no blocking host-to-device copy per call
+    scores = scores / torch.full((), float(hd), device=q.device).sqrt()
     pos = torch.arange(S, device=q.device)
     rel = pos[:, None] - pos[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -225,3 +227,15 @@ def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: to
     states = torch.einsum("bcthn,bcthp->bchpn", Bc[:, :, :, None, :] * decay_states[..., None], x)
     return (y.reshape(B, S, H, P), states, torch.exp(cum[:, :, -1, :]),
             torch.exp(cum).reshape(B, S, H))
+
+
+def fedavg_masked_mean(stacked: torch.Tensor, wm: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """K11's plain version (``repro/kernels/ref.py::fedavg_masked_mean``):
+    stacked (C, N), wm (C,) f32 weighted mask, den 0-d f32 -> (N,) in
+    stacked's dtype, ``acc = 0 + x[0] wm[0]``, then ``acc = acc + x[c] wm[c]``
+    in order, in float32, then one true division by the 0-d ``den`` and one
+    cast."""
+    acc = torch.zeros(stacked.shape[1], dtype=torch.float32, device=stacked.device)
+    for c in range(stacked.shape[0]):
+        acc = acc + stacked[c].float() * wm[c]
+    return (acc / den).to(stacked.dtype)

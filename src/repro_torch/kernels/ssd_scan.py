@@ -24,7 +24,9 @@ def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: to
     nc, H), exp_cum (B, S, H)). On the card chunk, N and P are at most 128;
     xdt, Bm and Cm of mixed dtypes are read as float32 (as the TPU kernel
     reads every operand). Counts its CUDA launches in
-    ``ssd_chunk_scan.launches``."""
+    ``ssd_chunk_scan.launches``. A forward pass: under grad it raises
+    (``kernels.ops.ssd_full_trainable`` is the training form)."""
+    _build.forward_only("ssd_chunk_scan", xdt, dA, Bm, Cm)
     B, S, H, P = xdt.shape
     N = Bm.shape[-1]
     if dA.shape != (B, S, H) or Bm.shape != (B, S, N) or Cm.shape != (B, S, N):

@@ -4,7 +4,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --full-size --img-size 416
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --store /tmp/cos
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --one-shot
-  PYTHONPATH=src python -m repro_torch.launch.serve --img-size 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch fedyolov3 --img-size 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --full-size --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
 
@@ -18,8 +18,9 @@ exits. LM archs (qwen3-1.7b, mamba2-1.3b) prefill ``--batch`` random prompts
 of ``--prompt-len`` tokens and decode ``--new-tokens`` more (greedy, or
 sampled at ``--temperature``), with ``attention_impl`` and ``ssm_impl`` set
 to ``"kernel"``: flash attention (K9) and the SSD chunk scan (K10) run in the
-prefill on the card, their plain versions on the CPU. ``--device`` defaults
-to ``cuda`` and never falls back to the CPU.
+prefill on the card, their plain versions on the CPU. ``--arch`` defaults to
+qwen3-1.7b, as the reference's does. ``--device`` defaults to ``cuda`` and
+never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -198,7 +199,7 @@ def serve_service(cfg, args, dev: torch.device) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="fedyolov3")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu; no fallback")
     ap.add_argument("--batch", type=int, default=4, help="LM prompts; --one-shot: images decoded")
     ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")

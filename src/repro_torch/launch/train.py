@@ -1,7 +1,10 @@
-"""Federated training launcher (port of the ``--task detection`` path of
-``repro/launch/train.py``).
+"""Federated training launcher (port of the sync paths of
+``repro/launch/train.py``: ``--task detection`` and ``--task lm``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu --rounds 3
+  PYTHONPATH=src python -m repro_torch.launch.train --task lm --arch qwen3-1.7b --device cpu --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full-size --clients 2 \
+      --batch 1 --seq 1024 --rounds 3
   PYTHONPATH=src python -m repro_torch.launch.train --task detection --full-size \\
       --img-size 416 --clients 3 --participation masked --max-participants 2 \\
       --optimizer sgd --lr 1e-3 --topn 4 --batch 8 --eval-every 5 --store /tmp/cos
@@ -19,11 +22,19 @@ secure, K6 + the base's kernel for hier), COS checkpoints every 5 rounds with
 ``--store``, global and per-client mAP@0.5 every ``--eval-every`` rounds
 (IoU and NMS kernels). After the last round the global model is published
 to a ``ModelSlot`` and 4 synthetic frames are decoded through the serving
-plane's detection program: train -> evaluate -> serve. ``--device``
-defaults to ``cuda`` and never falls back to the CPU.
+plane's detection program: train -> evaluate -> serve.
+
+The LM workload (``--task lm``, or ``auto`` with an LM ``--arch``: the dense
+qwen3-1.7b and the ssm mamba2-1.3b) trains on ``fed_batches``' token streams
+(``--partition stream`` gives each client its own Markov drift, a scenario
+splits a labeled pool) at ``--batch`` sequences of ``--seq`` tokens per
+local step, with flash attention (K9) and the SSD chunk scan (K10) in the
+forward on the card and their plain versions' gradients, and prints the
+reference's summary JSON. ``--device`` defaults to ``cuda`` and never falls
+back to the CPU.
 
 Every registered aggregator but the fedsgd topology is a ``--agg`` choice.
-The LM workload, ``--mode async``, ``--transport socket``, ``--restore``,
+``--mode async``, ``--transport socket``, ``--restore``,
 ``--replay-schedule`` and compact participation belong to later slices and
 raise.
 """
@@ -46,7 +57,7 @@ from repro_torch.core.rounds import FedConfig
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
 from repro_torch.core.server import FLServer
 from repro_torch.data import partition, synthetic
-from repro_torch.data.pipeline import detection_suite
+from repro_torch.data.pipeline import detection_suite, fed_batches
 from repro_torch.optim import adamw, sgd
 
 SERVE_FRAMES = 4  # frames decoded through the serving program after training
@@ -60,7 +71,8 @@ def default_topn(cfg) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default=None, help="architecture (default fedyolov3)")
+    ap.add_argument("--arch", default=None,
+                    help="architecture; optional with --task detection (defaults to fedyolov3)")
     ap.add_argument("--task", default="auto", choices=["auto", "lm", "detection"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu; no fallback")
     ap.add_argument("--eval-every", type=int, default=0,
@@ -104,7 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="secure: skip the pairwise masks (the quantized sum only)")
     ap.add_argument("--secure-session", type=int, default=0,
                     help="secure: session key the per-round pair masks derive from")
-    ap.add_argument("--batch", type=int, default=4, help="images per client per local step")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="images or sequences per client per local step")
+    ap.add_argument("--seq", type=int, default=64, help="LM: tokens per sequence")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--full-size", action="store_true", help="use the full (non-reduced) config")
@@ -115,14 +129,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class TrainRun:
-    """What a detection run leaves behind: the server (history, evals,
-    state), the slot the trained model was published to, the eval holdout,
-    the served frames' decode and the JSON summary."""
+    """What a run leaves behind: the server (history, evals, state) and the
+    JSON summary; a detection run also the slot the trained model was
+    published to, the eval holdout and the served frames' decode (None for
+    an LM run)."""
 
     server: FLServer
-    slot: serving.ModelSlot
-    eval_batch: dict
-    served: dict
+    slot: serving.ModelSlot | None
+    eval_batch: dict | None
+    served: dict | None
     summary: dict[str, Any]
 
 
@@ -135,24 +150,23 @@ def _check_ported(args) -> None:
         raise NotImplementedError("--transport socket (the multi-process wire) is slice 5")
     if args.mode != "sync":
         raise NotImplementedError("--mode async (the buffered engines) is slice 4")
-    if args.task == "lm":
-        raise NotImplementedError("--task lm (LM training) is slice 7b")
     if args.agg != "hier" and (args.group_size or args.hier_base != "dense"):
         raise ValueError("--group-size/--hier-base configure the hierarchical aggregator; "
                          "pass --agg hier")
 
 
-def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
-    """The train -> evaluate -> serve sequence for parsed ``args``."""
-    _check_ported(args)
-    dev = D.resolve(args.device)
-    cfg = get_arch(args.arch or "fedyolov3")
-    if cfg.family != "yolo":
-        raise NotImplementedError(f"{cfg.name}: only the detection task is ported")
-    if not args.full_size:
-        cfg = cfg.reduced()
-    budget = args.max_participants or max(2, args.clients // 2)
-    fed = FedConfig(
+def resolve_task(args) -> str:
+    """``--task auto`` -> detection for a yolo-family or absent ``--arch``,
+    lm otherwise."""
+    if args.task != "auto":
+        return args.task
+    return "detection" if args.arch is None or get_arch(args.arch).family == "yolo" else "lm"
+
+
+def fed_config(args, cfg) -> FedConfig:
+    """The round configuration both tasks build from the flags; the
+    aggregation runs through the CUDA kernels (``agg_impl="kernel"``)."""
+    return FedConfig(
         n_clients=args.clients,
         local_steps=args.local_steps,
         aggregation=args.agg,
@@ -175,15 +189,71 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
         secure_mask=not args.no_secure_mask,
         secure_session=args.secure_session,
     )
+
+
+def make_server(args, cfg, fed: FedConfig, dev: torch.device, task_id: str) -> FLServer:
+    """The FL server for parsed ``args``: the optimizer, the COS store
+    (checkpoints every 5 rounds), the scheduler's budget (``clients // 2``,
+    at least 2, unless ``--max-participants``) and fairness floor."""
+    budget = args.max_participants or max(2, args.clients // 2)
     optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
     store = ObjectStore(args.store) if args.store else None
-    task_id = cfg.name
-    server = FLServer(
+    return FLServer(
         cfg, fed, optimizer, store=store,
         scheduler=TaskScheduler(fed.n_clients, SchedulerConfig(
             max_participants=budget, fairness_rounds=args.fairness_rounds)),
         seed=args.seed, checkpoint_every=5 if store else 0, task_id=task_id, device=dev,
     )
+
+
+def _summary(history, args, dev: torch.device) -> dict[str, Any]:
+    return {
+        "final_loss": history[-1].loss,
+        "rounds": len(history),
+        "participation": args.participation,
+        "mean_participants": sum(len(r.participants) for r in history) / len(history),
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+
+
+def train_lm(args, log=lambda m: print(m, flush=True)) -> TrainRun:
+    """Federated LM training for parsed ``args``: qwen3-1.7b (dense) or
+    mamba2-1.3b (ssm), reduced unless ``--full-size``, with the kernel
+    branches on (``attention_impl`` / ``ssm_impl`` = ``"kernel"``)."""
+    _check_ported(args)
+    if args.arch is None:
+        raise ValueError("--task lm needs --arch (qwen3-1.7b or mamba2-1.3b)")
+    dev = D.resolve(args.device)
+    cfg = get_arch(args.arch)
+    if cfg.family == "yolo":
+        raise ValueError(f"--task lm needs an LM arch (got {args.arch})")
+    if not args.full_size:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+    fed = fed_config(args, cfg)
+    server = make_server(args, cfg, fed, dev, args.arch)
+    batches = fed_batches(cfg, fed, batch=args.batch, seq=args.seq,
+                          partition_name=args.partition, alpha=args.alpha)
+    server.fit(batches, args.rounds, log=log)
+    summary = _summary(server.history, args, dev)
+    if server.store:
+        summary["stored_rounds"] = server.store.rounds(args.arch)
+    return TrainRun(server, None, None, None, summary)
+
+
+def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
+    """The train -> evaluate -> serve sequence for parsed ``args``."""
+    _check_ported(args)
+    dev = D.resolve(args.device)
+    cfg = get_arch(args.arch or "fedyolov3")
+    if cfg.family != "yolo":
+        raise ValueError(f"--task detection needs a yolo-family arch (got {args.arch})")
+    if not args.full_size:
+        cfg = cfg.reduced()
+    fed = fed_config(args, cfg)
+    task_id = cfg.name
+    server = make_server(args, cfg, fed, dev, task_id)
+    store = server.store
     scenario = "iid" if args.partition == "stream" else args.partition
     gen, eval_batch, _ = detection_suite(cfg, fed, batch=args.batch, img_size=args.img_size,
                                          scenario=scenario, alpha=args.alpha)
@@ -211,15 +281,8 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     log(f"serving {SERVE_FRAMES} frames (version {len(history)}): {kept} detections after NMS "
         f"(top score {float(served['scores'].max()):.3f})")
 
-    summary = {
-        "final_loss": history[-1].loss,
-        "rounds": len(history),
-        "participation": args.participation,
-        "mean_participants": sum(len(r.participants) for r in history) / len(history),
-        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "served_version": len(history),
-        "served_detections": kept,
-    }
+    summary = {**_summary(history, args, dev), "served_version": len(history),
+               "served_detections": kept}
     if store:
         summary["stored_rounds"] = store.rounds(task_id)
     if server.eval_history:
@@ -231,7 +294,7 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
 
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
-    run = train_detection(args)
+    run = train_lm(args) if resolve_task(args) == "lm" else train_detection(args)
     print(json.dumps(run.summary), flush=True)
     return run.summary
 

@@ -4,7 +4,8 @@
 RoPE, qk-norm, grouped KV heads, causal or bidirectional masking and
 per-layer sliding windows, in the reference's (B, S, H, hd) layout. Under
 ``attention_impl="kernel"`` a causal prefill whose length is a multiple of
-128 runs flash attention (K9, ``kernels.ops.flash_attention``); every other
+128 runs flash attention (K9: ``kernels.ops.flash_attention``, or under
+grad ``flash_attention_trainable``, its plain version's backward); every other
 shape takes the plain paths below, as in the reference. Mixed dtypes (a
 bfloat16 cache against float32 weights) promote as ``jnp.einsum`` does
 (``layers.einsum``). :func:`decode_attention` writes the new position into
@@ -75,7 +76,7 @@ def _sdpa(q, k, v, mask):
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
     scores = einsum("bskgh,btkh->bkgst", qg, k).float()
-    scores = scores / torch.tensor(float(hd), device=q.device).sqrt()
+    scores = scores / torch.full((), float(hd), device=q.device).sqrt()
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = einsum("bkgst,btkh->bskgh", probs, v)
@@ -129,7 +130,7 @@ def windowed_attention(q, k, v, *, window: int) -> torch.Tensor:
     kcat = torch.cat([kprev, kc], dim=2)  # (B, nc, 2W, Hkv, hd)
     vcat = torch.cat([vprev, vc], dim=2)
     scores = einsum("bnskgh,bntkh->bnkgst", qc, kcat).float()
-    scores = scores / torch.tensor(float(hd), device=q.device).sqrt()
+    scores = scores / torch.full((), float(hd), device=q.device).sqrt()
     s_idx = torch.arange(W, device=q.device)[:, None]  # query offset in chunk
     t_idx = torch.arange(2 * W, device=q.device)[None, :]  # key offset in [prev, cur]
     rel = s_idx + W - t_idx  # qpos - kpos
@@ -155,8 +156,10 @@ def attention_block(p: dict, x: torch.Tensor, cfg, *, window: int = 0, positions
         positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     if cfg.attention_impl == "kernel" and cfg.causal and S % 128 == 0:
-        out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                   causal=True, window=window).transpose(1, 2)
+        # training takes the autograd Function (K9 forward, plain backward)
+        fa = kops.flash_attention_trainable if torch.is_grad_enabled() else kops.flash_attention
+        out = fa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True, window=window).transpose(1, 2)
     elif window and cfg.causal and S % window == 0 and S > window:
         out = windowed_attention(q, k, v, window=window)
     elif window and cfg.causal:

@@ -9,10 +9,12 @@ use this to give both packages identical weights, and the checkpoint store
 uses it to read and write the reference's npz layout.
 
 :func:`state_from_reference` and :func:`state_to_reference` carry a flat
-round state across: the reference's ``state["params"]`` is already the
-packed ``(C, N_total)`` buffer in the port's layout, and its optimizer
-moments (client-stacked trees such as ``state["opt"]["mu"]``) pack into the
-port's ``(C, N_total)`` moment buffers. :func:`agg_state_from_reference`
+round state across, for fedyolov3 and the LM archs alike (the pack spec
+comes from the config's family): the reference's ``state["params"]`` is
+already the packed ``(C, N_total)`` buffer in the port's layout, and its
+optimizer moments (client-stacked trees such as ``state["opt"]["mu"]`` or
+adamw's ``"m"`` and ``"v"``) pack into the port's ``(C, N_total)`` moment
+buffers. :func:`agg_state_from_reference`
 and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
 (``base``, ``global``, ``ef``, ``prev_sums``, the server optimizer's
 ``opt`` moments and step count, hier's state of its base) are flat arrays
@@ -73,10 +75,9 @@ def _tuplify(node):
 
 
 def _spec(cfg):
-    from repro_torch.core import packing
-    from repro_torch.models import yolov3
+    from repro_torch.core import packing, rounds
 
-    tpl = yolov3.template(cfg)
+    tpl = rounds.make_template(cfg)
     return packing.build_pack_spec(cfg, tpl), tpl
 
 

@@ -6,7 +6,8 @@ RMSNorm, RoPE and the SwiGLU MLP, with the reference's numerics.
 float32 and casts back; SiLU runs in float32. :func:`einsum` promotes its
 operands to one dtype first, as ``jnp.einsum`` does (``torch.einsum``
 refuses mixed dtypes): the decode path multiplies a bfloat16 hidden state or
-cache by float32 weights. ``softmax_cross_entropy`` comes with LM training.
+cache by float32 weights. :func:`softmax_cross_entropy` is the LM training
+loss.
 """
 from __future__ import annotations
 
@@ -56,3 +57,24 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = einsum("...d,df->...f", x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return einsum("...f,fd->...d", h, w_down)
+
+
+def gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit in float32, (..., V), (...,) -> (...,). The
+    reference takes it with a masked reduction (``sum(logits * (iota ==
+    label))``); every other term of that sum is a signed zero, so it is the
+    gathered value bit for bit on finite logits. The port gathers: no
+    (..., V) one-hot is materialized."""
+    return torch.gather(logits.float(), -1, labels.long()[..., None])[..., 0]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over valid positions; logits (..., V), labels (...,) int,
+    mask (...,) or None. float32 statistics; the masked mean divides by
+    ``max(sum(mask), 1)``."""
+    nll = torch.logsumexp(logits.float(), dim=-1) - gold_logit(logits, labels)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

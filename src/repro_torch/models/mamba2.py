@@ -4,7 +4,8 @@ The minimal SSD formulation of arXiv:2405.21060: an intra-chunk quadratic
 term plus an inter-chunk recurrent state, the recurrence a loop over chunks
 (the reference's ``lax.scan``). Under ``ssm_impl="kernel"`` a prefill whose
 length is a multiple of ``ssm_chunk`` runs the intra-chunk pass as the SSD
-chunk-scan kernel (K10, through ``kernels.ops.ssd_full``); other lengths take
+chunk-scan kernel (K10, through ``kernels.ops.ssd_full``, or under grad
+``ssd_full_trainable``, whose backward is :func:`ssd_chunked`'s); other lengths take
 :func:`ssd_chunked`, as in the reference. Projections stay separate (wz, wx,
 wB, wC, wdt), as in the reference's param tree. :func:`mamba2_decode` is the
 O(1)-in-sequence one-token step.
@@ -75,9 +76,14 @@ def ssd_chunked(xdt, dA, Bm, Cm, chunk: int):
     B_c = Bm.reshape(b, nc, chunk, n)
     C_c = Cm.reshape(b, nc, chunk, n)
     cum = torch.cumsum(dA.reshape(b, nc, chunk, h).float(), dim=2)  # (b, nc, Q, h)
-    # intra-chunk decay L[q, t] = exp(cum[q] - cum[t]), q >= t
+    # intra-chunk decay L[q, t] = exp(cum[q] - cum[t]), q >= t. The mask goes
+    # in before the exp (-inf -> 0): above the diagonal cum[q] - cum[t] > 0
+    # reaches exp's overflow at full width (dA about -0.8 over a chunk of
+    # 128), and where(tri, exp(.), 0) would then backpropagate 0 * inf = NaN.
+    # The forward is the reference's bit for bit.
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=xdt.device).tril()[None, None, :, :, None]
-    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0).to(dt)
+    L = torch.exp(torch.where(tri, cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              float("-inf"))).to(dt)
     scores = einsum("bcqn,bctn->bcqt", C_c, B_c)
     y_diag = einsum("bcqth,bcthp->bcqhp", scores[..., None] * L, xdt_c)
     # per-chunk state contribution and total chunk decay
@@ -117,7 +123,9 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, return_state: bool = False):
     xh = xin.reshape(*xin.shape[:2], h, pdim)
     xdt = xh * dt[..., None].to(x.dtype)
     if cfg.ssm_impl == "kernel" and x.shape[1] % cfg.ssm_chunk == 0:
-        y, final_state = kops.ssd_full(xdt, dA, Bm, Cm, chunk=cfg.ssm_chunk)
+        # training takes the autograd Function (K10 forward, ssd_chunked's backward)
+        ssd = kops.ssd_full_trainable if torch.is_grad_enabled() else kops.ssd_full
+        y, final_state = ssd(xdt, dA, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
         y, final_state = ssd_chunked(xdt, dA, Bm, Cm, cfg.ssm_chunk)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
@@ -128,7 +136,10 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg, return_state: bool = False):
         k = cfg.ssm_conv
         pre = torch.cat([x_pre, B_pre, C_pre], dim=-1)  # (B, S, C)
         S = x.shape[1]
-        conv_cache = pre[:, -(k - 1):, :] if S >= k - 1 else F.pad(pre, (0, 0, k - 1 - S, 0))
+        # a copy, not a view: a view would keep the whole (B, S, C) ``pre``
+        # alive for as long as the cache lives (every layer of a prefill)
+        conv_cache = (pre[:, -(k - 1):, :].clone() if S >= k - 1
+                      else F.pad(pre, (0, 0, k - 1 - S, 0)))
         return out, {"ssm": final_state.float(), "conv": conv_cache}
     return out
 

@@ -1,27 +1,34 @@
-"""LM orchestration for serving: templates, embedding, the trunk and the
-logits (port of the serving subset of ``repro/models/transformer.py``).
+"""LM orchestration: templates, embedding, the trunk, the logits and the
+training loss (port of ``repro/models/transformer.py``).
 
 Families ported: ``dense`` without a local:global pattern (pre-norm GQA +
 SwiGLU, qwen3) and ``ssm`` (attention-free Mamba2 SSD blocks, mamba2). The
 layer stacks stay stacked ((n_layers, ...) leaves, the reference's layout),
-and the reference's ``lax.scan`` over layers is a Python loop over
-:func:`layer`. MoE, gemma3's local/global groups, the zamba2 hybrid, vlm and
-audio raise ``NotImplementedError`` (slice 7c); ``chunked_ce`` and
-``loss_fn`` come with LM training (slice 7b). The reference's
+and the reference's ``lax.scan`` over layers is a Python loop over the
+layers. MoE, gemma3's local/global groups, the zamba2 hybrid, vlm and audio
+raise ``NotImplementedError`` (slice 7c). The reference's
 ``models/shard_ctx.py::constrain`` is a sharding hint, the identity on one
 card, and is not ported.
+
+Under grad, as the reference's ``jax.checkpoint`` does on every scanned
+block and on the CE body, each layer and each CE chunk runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: the
+backward recomputes its activations, so a layer keeps only its (B, S, D)
+input. The recompute runs the layer's forward again, K9 and K10 included:
+a local step launches each kernel twice per layer.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import einsum, rms_norm, swiglu
-from repro_torch.models.params import ParamInfo, map_tree
+from repro_torch.models.layers import einsum, gold_logit, rms_norm, softmax_cross_entropy, swiglu
+from repro_torch.models.params import ParamInfo, flatten_with_paths, map_tree, unflatten
 
 PyTree = Any
 
@@ -109,13 +116,34 @@ def embed_inputs(cfg, params, batch) -> torch.Tensor:
     return params["embed"][batch["tokens"]]
 
 
+def unstack_layers(params: PyTree) -> list[PyTree]:
+    """Every layer's parameters, views into the stacked leaves through
+    ``unbind``: its backward stacks the layers' gradients once, where
+    indexing each layer (:func:`layer`) would zero-fill a full-size stacked
+    gradient per layer and leaf."""
+    leaves = list(flatten_with_paths(params["layers"]))
+    split = [w.unbind(0) for _, w in leaves]
+    return [unflatten(params["layers"], {path: split[j][i] for j, (path, _) in enumerate(leaves)})
+            for i in range(len(split[0]))]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, under grad as a non-reentrant checkpoint: the backward
+    recomputes ``fn``'s activations (the reference's ``jax.checkpoint``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
     """Hidden states (B, S, D) -> (B, S, D) after all layers and the final
     norm. Returns (hidden, aux_loss); aux is 0 without MoE."""
     check_family(cfg)
-    for i in range(cfg.n_layers):
-        p = layer(params, i)
-        x = dense_block(cfg, p, x, cfg.window) if cfg.family == "dense" else ssm_block(cfg, p, x)
+    for p in unstack_layers(params):
+        if cfg.family == "dense":
+            x = remat(lambda h, q: dense_block(cfg, q, h, cfg.window), x, p)
+        else:
+            x = remat(lambda h, q: ssm_block(cfg, q, h), x, p)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), torch.zeros((), device=x.device)
 
 
@@ -129,3 +157,53 @@ def logits_fn(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
         pad[cfg.vocab_size:] = -1e30
         logits = logits + pad
     return logits
+
+
+CE_CHUNK = 512  # sequence-chunked loss: never materialize (B, S, V) logits
+
+
+def _ce_chunk(cfg, params, hc, lc, mc):
+    """One CE chunk's (sum of masked nll, sum of mask), float32."""
+    logits = logits_fn(cfg, params, hc)
+    nll = torch.logsumexp(logits.float(), dim=-1) - gold_logit(logits, lc)
+    mc = mc.float()
+    return torch.sum(nll * mc), torch.sum(mc)
+
+
+def chunked_ce(cfg, params, hidden: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor | None) -> torch.Tensor:
+    """CE over sequence chunks of ``CE_CHUNK`` (each recomputed in the
+    backward): the peak logits buffer is (B, CE_CHUNK, V) instead of (B, S,
+    V). A sequence that is not a multiple of the chunk, or not longer than
+    one, takes the whole-sequence loss."""
+    B, S, _ = hidden.shape
+    if S % CE_CHUNK or S <= CE_CHUNK:
+        return softmax_cross_entropy(logits_fn(cfg, params, hidden), labels, mask)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // CE_CHUNK):
+        sl = slice(i * CE_CHUNK, (i + 1) * CE_CHUNK)
+        t, c = remat(lambda h, p, l, m: _ce_chunk(cfg, p, h, l, m),
+                     hidden[:, sl], params, labels[:, sl], mask[:, sl])
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _next_token_ce(cfg, params, hidden: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token CE over the full (chunk-divisible) sequence: labels are the
+    tokens shifted left, the last position masked out."""
+    S = hidden.shape[1]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = (torch.arange(S, device=hidden.device) < S - 1)[None].expand(labels.shape)
+    return chunked_ce(cfg, params, hidden, labels, mask)
+
+
+def loss_fn(cfg: ArchConfig, params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The text training objective: next-token CE (+ the router's aux loss,
+    0 without MoE). batch {"tokens" (B, S) int} -> (loss, {"ce", "aux"})."""
+    x = embed_inputs(cfg, params, batch)
+    hidden, aux = trunk(cfg, params, x)
+    ce = _next_token_ce(cfg, params, hidden, batch["tokens"])
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}

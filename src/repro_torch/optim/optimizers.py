@@ -90,9 +90,16 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
         tf = t.float()
         bc1 = 1 - b1 ** tf
         bc2 = 1 - b2 ** tf
-        step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        # lr * (m / bc1) / (sqrt(v / bc2) + eps), op for op, in two
+        # temporaries: a full-width model's row is 6.9 GB
+        den = torch.div(v, bc2).sqrt_().add_(eps)
+        step = torch.div(m, bc1).mul_(lr).div_(den)
+        del den
         if weight_decay:
-            step = step + lr * weight_decay * p.float()
-        p.copy_((p.float() - step).to(p.dtype))
+            step.add_(lr * weight_decay * p.float())
+        if p.dtype == torch.float32:
+            p.sub_(step)
+        else:
+            p.copy_((p.float() - step).to(p.dtype))
 
     return Optimizer(init, update, "adamw")

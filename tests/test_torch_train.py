@@ -335,10 +335,16 @@ def test_aggregators_match_reference(mode, r, which, mask_kind):
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(state_layout="tree"), dict(aggregation="fedsgd"), dict(participation="compact"),
-               dict(microbatches=2)):
+    for kw in (dict(state_layout="tree"), dict(aggregation="fedsgd"), dict(participation="compact")):
         with pytest.raises(NotImplementedError, match="slice"):
             rounds.make_aggregator(TCFG, _fed("torch", **kw))
+    # microbatches are ported (tests/test_torch_lm_train.py); the LM families
+    # beyond dense and ssm are not
+    with pytest.raises(NotImplementedError, match="slice 7c"):
+        rounds.make_aggregator(dataclasses.replace(get_arch("qwen3-1.7b").reduced(), family="moe"),
+                               _fed("torch"))
+    with pytest.raises(ValueError, match="microbatches"):
+        rounds.make_aggregator(TCFG, _fed("torch", microbatches=0))
     with pytest.raises(ValueError, match="the port has"):
         rounds.make_aggregator(TCFG, _fed("torch", aggregation="no_such_mode"))
     with pytest.raises(NotImplementedError, match="slice"):
@@ -470,7 +476,8 @@ def test_launcher_trains_evaluates_checkpoints_and_serves(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--mode", "async"], ["--transport", "socket"],
                                    ["--restore", "x"], ["--replay-schedule", "x"],
-                                   ["--task", "lm"], ["--participation", "compact"]])
+                                   ["--task", "lm", "--arch", "qwen3-1.7b", "--participation",
+                                    "compact"], ["--participation", "compact"]])
 def test_launcher_paths_of_later_slices_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         train.main(["--device", "cpu", "--rounds", "1", *flags])
