@@ -4,13 +4,17 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Phases, each a hard check (any failure exits non-zero, with no result line):
+Phases, each a hard check (any failure exits non-zero, with no result line),
+in order. Every "device ms" is the profiler's kernel time in a trace that
+recorded every launch made; where no trace does, the kernels line says
+"events" and the time is that of back-to-back calls between CUDA events:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of the ten CUDA kernels (NMS K3, bucket reduce K1, pairwise IoU K2,
-   quant8 reduce K4, grouped reduce K6, quant4 reduce K7, masked sum K8,
-   flash attention K9, SSD chunk scan K10, per-leaf FedAvg K11) from
-   ``src/repro_torch/kernels/csrc`` and its time.
+   of the CUDA kernels of all 14 functions (NMS K3, bucket reduce K1,
+   pairwise IoU K2, quant8 reduce K4, row quantize/dequantize K5a/K5b,
+   grouped reduce K6, quant4 reduce K7, masked sum K8, flash attention K9,
+   SSD chunk scan K10, per-leaf FedAvg K11, block quantize/dequantize
+   K12a/K12b) from ``src/repro_torch/kernels/csrc`` and its time.
 2. NMS kernel vs plain: the CUDA NMS scan against the plain PyTorch scan,
    both on the card, over six case kinds at (B, N) in (1, 1), (8, 16),
    (64, 100), (4, 1024). Keep masks must be bitwise equal (tolerance:
@@ -72,9 +76,12 @@ Phases, each a hard check (any failure exits non-zero, with no result line):
    the card. (b) The launcher's path per mode (quant8, quant4, secure,
    topk_ef, hier over eq6 with 4 clients in groups of 2): img 416, batch 8,
    sgd lr 1e-3, masked participation with a budget of 2, 3 rounds each;
-   finite losses, and per round one launch of K4 (quant8), K7 (quant4), K8
-   (secure), K1 (topk_ef), K6 and K1 (hier). Prints ms per round with the
-   aggregation timed alone, and the peak device memory.
+   finite losses, and per round one launch of K5a and none of K4 (quant8:
+   the launcher's 1 x 1 client mesh takes the gathered int8 transport), K7
+   (quant4), K8 (secure), K1 (topk_ef), K6 and K1 (hier); K5b in no run.
+   Prints ms per round with the aggregation timed alone, and the peak
+   device memory. Then K4's path: an ``FLServer`` quant8 run without a
+   mesh, 3 rounds, one K4 launch per round and no K5a or K5b.
 8. K9 and K10 vs plain (rtol = atol = 2e-4 in float32, 3e-2 in bfloat16,
    the reference's own tolerances): flash attention at the qwen3 prefill's
    (4, 16, 1024, 128) with 8 kv heads, causal, in float32 and bfloat16,
@@ -118,6 +125,27 @@ Phases, each a hard check (any failure exits non-zero, with no result line):
    (e) The demo's tail (``examples.compression_demo.report``) on qwen3's
    trained state: Eq. 6 scores and uploads, one K1 launch, ``fedavg_tree``
    with one K11 launch per leaf, bitwise equal to its plain version.
+11. The row and block quantizers, compact participation and fedsgd. (a)
+   K5a/K5b against their plain versions, bitwise (tolerance: none), at the
+   quant8 round's (3, 13,312,864) with block 1024, at N off the block and
+   off 4, C = 1 and 9, blocks 64, 128 and 4096, an all-zero block (the
+   1e-12 floor), rows whose x/s sits on .5 ties (half to even) and at
+   +-127 s, float32 and bfloat16 outputs; K12a/K12b through
+   ``ops.quantize_tree`` / ``dequantize_tree`` over fedyolov3's whole tree,
+   one launch per leaf, every leaf bitwise. Kernel ms (CUDA events), device
+   ms (profiler), plain ms and the bound. (b) quant8 ``aggregate`` on phase
+   7a's buffer with a client masked out: the launcher's 1 x 1 mesh on a
+   1-rank NCCL group (K5a, the int8 and scale all-gathers, the
+   decode-reduce) equals meshless K4 and the host's plain path bitwise;
+   both times. (c) The launcher at full width with ``--participation
+   compact --clients 3 --max-participants 2``, ``--agg quant8`` and
+   ``--agg eq6``, img 416, batch 8, sgd 1e-3, 3 rounds each: finite
+   losses, exactly 2 local steps a round, K5a once per quant8 round, K4
+   and K5b never, K1 once per eq6 round; ms per round, aggregation alone, peak
+   memory. (d) fedsgd: ``FLServer`` with one shared fedyolov3 copy, 3
+   clients' batches of 8 at 416 as one batch of 24, 3 rounds: finite
+   losses, peak device memory under 75 GiB, ms per round; and one round at
+   img 64 on the card against the host at rtol 1e-4 / atol 1e-5.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -174,7 +202,9 @@ UPLINK_EXACT = [("quant8", {}), ("quant4", dict(quant4_mode="stochastic", quant4
                 ("hier", dict(n_clients=4, group_size=2, hier_base="dense"))]
 UPLINK_TOL = [("fedavgm", dict(server_lr=1.0)), ("fedadam", dict(server_lr=0.02)),
               ("trimmed_mean", dict(trim_ratio=0.34))]
-UPLINK_RUNS = {"quant8": ([], {"quant8_reduce": 1}),
+# the launcher's quant8 runs on its 1 x 1 client mesh: K5a, not K4 (K4's path
+# is a meshless FLServer run in the same phase)
+UPLINK_RUNS = {"quant8": ([], {"quantize_rows": 1, "quant8_reduce": 0}),
                "quant4": ([], {"quant4_reduce": 1}),
                "secure": ([], {"masked_u32_sum": 1}),
                "topk_ef": ([], {"packed_bucket_reduce": 1}),
@@ -207,6 +237,12 @@ FEDAVG_C, FEDAVG_N = (1, 2, 3, 8), (1, 1023, 1025, 4_194_305)
 GRAD_SEQ, GRAD_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1024, 1e-4, 5e-3, 5e-4
 LM_TRAIN_CLIENTS, LM_TRAIN_ROUNDS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 3, 1, 1024
 LM_TRAIN_PEAK_GIB = 75.0
+# phase 11: ragged (C, N, block) cases of K5a/K5b beside the main path's (3,
+# N, 1024) and the ties rows; the compact launcher runs; fedsgd at full width
+ROWQ_RAGGED = [(9, 5001, 1024), (1, 4097, 1024), (5, 3333, 128), (2, 4096 * 3 + 8, 4096),
+               (3, 1030, 1024), (1, 77, 64)]
+COMPACT_ROUNDS, COMPACT_BUDGET = 3, 2
+FEDSGD_ROUNDS, FEDSGD_PEAK_GIB = 3, 75.0
 
 
 def fail(msg: str) -> None:
@@ -290,25 +326,53 @@ def same_bits(a, b) -> bool:
                                               b.contiguous().view(torch.int32))
 
 
-def device_ms(fn, kernel: str, reps: int = 5) -> float | None:
-    """Mean device time per launch of the CUDA kernel named ``kernel``, from a
-    profiler trace of ``reps`` calls: its total device time over the
-    launches the trace recorded, which may be fewer than ``reps`` (None when
-    the trace has no device time)."""
+# launches of a one-element kernel on each side of the traced calls, one
+# entry per try: late in this script a bare trace records 0-4 of 5 launches
+TRACE_FILLERS = (256, 4096)
+
+
+def device_ms(fn, kernel: str, reps: int = 5, launches: int = 1) -> tuple[float, str]:
+    """Device time (ms) of the CUDA kernel named ``kernel`` per call of
+    ``fn``, which launches it ``launches`` times, and where it comes from.
+
+    "profiler": the kernel's total device time in a trace of ``reps`` calls
+    that recorded all ``reps * launches`` launches. A trace can miss the
+    launches near its edges, more of them the longer the process has run,
+    so the calls sit between launches of a one-element fill before and a
+    one-element add after, more on each try (``TRACE_FILLERS``). "events":
+    no try recorded every launch, and the time is that of ``reps`` calls
+    back to back between two CUDA events, host gaps included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
-    total, count = sum(e.device_time_total for e in rows), sum(e.count for e in rows)
-    if count != reps:
-        print(f"device_ms {kernel}: the trace recorded {count} of {reps} launches", flush=True)
-    return total / count / 1e3 if total > 0 else None
+    want = reps * launches
+    one = torch.zeros(1, device="cuda")
+    for fillers in TRACE_FILLERS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(fillers):
+                one.fill_(1.0)
+            for _ in range(reps):
+                fn()
+            for _ in range(fillers):
+                one.add_(1.0)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in rows if kernel in e.key]
+        count = sum(e.count for e in mine)
+        if count == want:
+            return sum(e.device_time_total for e in mine) / reps / 1e3, "profiler"
+        others = ", ".join([f"{e.count} x {e.key[:60]}" for e in rows if kernel not in e.key][:4])
+        print(f"device_ms {kernel}: the trace with {fillers} fillers a side recorded {count} of "
+              f"{want} launches; beside them {others or 'nothing'}", flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events"
 
 
 def roofline(nbytes: float, ops: float) -> tuple[float, str]:
@@ -379,14 +443,14 @@ def phase4(dev, card: str) -> dict:
         bound, by = reduce_bound_ms(C, N, B)
         k1["cases"] += 1
         if kind == "main":
-            k1.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                      device_ms=device_ms(lambda: pack.packed_bucket_reduce(x, wm, ids, mask),
-                                          "bucket_reduce_kernel"))
+            k1.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+            k1["device_ms"], k1["device_ms_from"] = device_ms(
+                lambda: pack.packed_bucket_reduce(x, wm, ids, mask), "bucket_reduce_kernel")
         print(f"phase4 bucket_reduce {kind:6s} C={C:3d} N={N:9d} B={B} mask={mask is not None!s:5s} "
               f"bitwise-equal kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound:.4f} ({by})"
               f"  [{card}]", flush=True)
     print(f"phase4 bucket_reduce main path (3, {spec.n_total}): kernel {k1['ms']:.4f} ms "
-          f"(device {k1['device_ms']}) against a {k1['bound_ms']:.4f} ms bound "
+          f"(device {k1['device_ms']}, {k1['device_ms_from']}) against a {k1['bound_ms']:.4f} ms bound "
           f"({k1['bound_ms'] / k1['ms']:.3f} of it)  [{card}]", flush=True)
 
     # -- K2: the eval's shape first
@@ -407,9 +471,9 @@ def phase4(dev, card: str) -> dict:
             p_ms = time_ms(lambda: ref.pairwise_iou(ta, tb))
             bound, by = iou_bound_ms(B, N, M, giou=False)
             if (B, N, M) == IOU_SHAPES[0] and kind == "random":
-                k2.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                          device_ms=device_ms(lambda: detect.pairwise_iou(ta, tb),
-                                              "pairwise_iou_kernel"))
+                k2.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by)
+                k2["device_ms"], k2["device_ms_from"] = device_ms(
+                    lambda: detect.pairwise_iou(ta, tb), "pairwise_iou_kernel")
             print(f"phase4 pairwise_iou {kind:10s} B={B:2d} N={N:4d} M={M:4d} IoU+GIoU bitwise-equal "
                   f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound:.3e} ({by})  [{card}]",
                   flush=True)
@@ -649,12 +713,13 @@ def phase6(dev, card: str) -> dict:
         st = stats[name]
         st["ms"] = time_ms(kern)
         st["plain_ms"] = time_ms(plain, reps=5, warmup=1)
-        st["device_ms"] = device_ms(kern, kernel_name)
+        st["device_ms"], st["device_ms_from"] = device_ms(kern, kernel_name)
         st["bound_ms"], st["bound_by"] = bound
         st["library_ms"] = time_ms(library) if library else None
         lib = "" if library is None else f" library_ms={st['library_ms']:.4f}"
         print(f"phase6 {name} main path: kernel_ms={st['ms']:.4f} device_ms={st['device_ms']} "
-              f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} ({st['bound_by']}){lib}; "
+              f"({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
+              f"({st['bound_by']}){lib}; "
               f"{st['cases']} cases bitwise-equal  [{card}]", flush=True)
 
     # -- K4 and K7: the quant8 / quant4 round's (3, N), then ragged cases
@@ -807,6 +872,7 @@ def phase7(dev, card: str) -> dict:
     check(same_bits(residual, torch.where(sel, 0.0, acc)), "topk_ef: residual != unselected acc")
     print(f"phase7a secure masked == unmasked bitwise; topk_ef uploaded + residual == acc bitwise "
           f"({int(sel.sum())} of {sel.numel()} selected)  [{card}]", flush=True)
+    x_host, x0_host = x.cpu(), x0.cpu()  # phase 11b's buffer
     del state, ost, x, x0, batch, outs, acc, sel, up, residual
     print(f"phase7a peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB  [{card}]",
           flush=True)
@@ -814,8 +880,10 @@ def phase7(dev, card: str) -> dict:
     # -- (b) the launcher's path per mode
     counters = {"quant8_reduce": pack.quant8_reduce, "quant4_reduce": quant4.quant4_reduce,
                 "masked_u32_sum": kmask.masked_u32_sum, "grouped_reduce": pack.grouped_reduce,
-                "packed_bucket_reduce": pack.packed_bucket_reduce}
-    main_launches = {}
+                "packed_bucket_reduce": pack.packed_bucket_reduce,
+                "quantize_rows": pack.quantize_rows, "dequantize_rows": pack.dequantize_rows}
+    # K5b has no caller on any round's path: counted, and held at 0
+    main_launches = {"dequantize_rows": 0}
     for mode, (extra, per_round) in UPLINK_RUNS.items():
         args = train.build_parser().parse_args([
             "--task", "detection", "--full-size", "--device", str(dev), "--img-size", str(IMG),
@@ -839,6 +907,8 @@ def phase7(dev, card: str) -> dict:
             check(launches[k] == n * UPLINK_ROUNDS,
                   f"{mode}: {k} launched {launches[k]} times in {UPLINK_ROUNDS} rounds")
             main_launches[k] = main_launches.get(k, 0) + launches[k]
+        check(launches["dequantize_rows"] == 0, f"{mode}: K5b launched {launches['dequantize_rows']} times")
+        main_launches["dequantize_rows"] += launches["dequantize_rows"]
         main_launches[f"{mode}_rounds"] = UPLINK_ROUNDS
         # where a round's time goes: the round, and the aggregation alone
         gen, _, _ = detection_suite(cfg, server.fed, batch=TRAIN_BATCH, img_size=IMG, seed=1)
@@ -851,9 +921,38 @@ def phase7(dev, card: str) -> dict:
                                                              server.state["agg"], mask), reps=10)
         print(f"phase7b {mode:8s} {' '.join(extra) or '--clients 3'}: {UPLINK_ROUNDS} rounds in "
               f"{wall:.2f} s, loss {' '.join(f'{v:.3f}' for v in losses)}; launches "
-              f"{ {k: v for k, v in launches.items() if v} }; ms per round {round_ms:.3f}, "
-              f"aggregation alone {agg_ms:.3f}; peak device memory {peak:.2f} GiB  [{card}]", flush=True)
-    return main_launches
+              f"{ {k: v for k, v in launches.items() if v} } (K5b {launches['dequantize_rows']}); ms "
+              f"per round {round_ms:.3f}, aggregation alone {agg_ms:.3f}; peak device memory "
+              f"{peak:.2f} GiB  [{card}]", flush=True)
+
+    # -- K4's path: quant8 without a client mesh (an FLServer built directly)
+    from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
+    from repro_torch.core.server import FLServer
+
+    fed = FedConfig(n_clients=TRAIN_CLIENTS, aggregation="quant8", client_axis="data",
+                    data_axis=None, participation="masked", agg_impl="kernel")
+    server = FLServer(cfg, fed, sgd(1e-3), device=dev, scheduler=TaskScheduler(
+        TRAIN_CLIENTS, SchedulerConfig(max_participants=2, fairness_rounds=3)))
+    gen, _, _ = detection_suite(cfg, fed, batch=TRAIN_BATCH, img_size=IMG)
+    for fn in counters.values():
+        fn.launches = 0
+    server.fit(gen, UPLINK_ROUNDS, log=None)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [r.loss for r in server.history]
+    check(all(np.isfinite(losses)), f"meshless quant8: losses {losses}")
+    check(launches["quant8_reduce"] == UPLINK_ROUNDS and launches["quantize_rows"] == 0
+          and launches["dequantize_rows"] == 0,
+          f"meshless quant8: launches {launches} in {UPLINK_ROUNDS} rounds")
+    main_launches["quant8_reduce"] = launches["quant8_reduce"]
+    main_launches["dequantize_rows"] += launches["dequantize_rows"]
+    main_launches["quant8_meshless_rounds"] = UPLINK_ROUNDS
+    print(f"phase7b quant8 without a mesh (FLServer, mesh=None): {UPLINK_ROUNDS} rounds, loss "
+          f"{' '.join(f'{v:.3f}' for v in losses)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (K5b {launches['dequantize_rows']})  [{card}]",
+          flush=True)
+    del server
+    return main_launches, (x_host, x0_host)
 
 
 def flash_bound_ms(B: int, H: int, Hkv: int, S: int, hd: int, causal: bool, window: int,
@@ -919,11 +1018,12 @@ def phase8(dev, card: str) -> dict:
         if st["cases"] == 1:  # the qwen3 prefill's shape, float32
             st.update(ms=k_ms, bound_ms=bound, bound_by=by,
                       plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), reps=5, warmup=1),
-                      device_ms=device_ms(lambda: ops.flash_attention(q, k, v), "flash_attention_kernel"),
                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                           q, k, v, is_causal=True, enable_gqa=True)))
+            st["device_ms"], st["device_ms_from"] = device_ms(lambda: ops.flash_attention(q, k, v),
+                                                              "flash_attention_kernel")
             sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-            line += (f" device_ms={st['device_ms']} plain_ms={st['plain_ms']:.4f} "
+            line += (f" device_ms={st['device_ms']} ({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f} "
                      f"sdpa_ms={st['library_ms']:.4f} (yardstick only; |sdpa - kernel| max "
                      f"{float((sdpa - kern).abs().max()):.3e})")
         print(f"{line}  [{card}]", flush=True)
@@ -952,10 +1052,10 @@ def phase8(dev, card: str) -> dict:
         if st["cases"] == 1:  # the mamba2 prefill's shape, float32
             st.update(ms=k_ms, bound_ms=bound, bound_by=by, library_ms=None,
                       plain_ms=time_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q, impl="ref"),
-                                       reps=5, warmup=1),
-                      device_ms=device_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q),
-                                          "ssd_chunk_scan_kernel"))
-            line += f" device_ms={st['device_ms']} plain_ms={st['plain_ms']:.4f}"
+                                       reps=5, warmup=1))
+            st["device_ms"], st["device_ms_from"] = device_ms(
+                lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q), "ssd_chunk_scan_kernel")
+            line += f" device_ms={st['device_ms']} ({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f}"
         print(f"{line}  [{card}]", flush=True)
     return stats
 
@@ -1137,21 +1237,6 @@ def fedavg_bound_ms(C: int, N: int, esize: int) -> tuple[float, str]:
     return roofline((C + 1) * N * esize, 2 * C * N)
 
 
-def kernel_device_ms(fn, kernel: str) -> float | None:
-    """Total device time (ms) of the CUDA kernel named ``kernel`` over one
-    call of ``fn``, from a profiler trace (None when the trace has none)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return total / 1e3 if total > 0 else None
-
-
 def phase10a(dev, card: str, largest_leaf: int) -> dict:
     """K11 against its plain version, bitwise, over the ragged cases; times
     at the main path's largest leaf with C = 2. -> K11's fields."""
@@ -1186,17 +1271,19 @@ def phase10a(dev, card: str, largest_leaf: int) -> dict:
     m = torch.ones(C, device=dev)
     wm, den = kfedavg.weighted_mask(w, m)
     k_ms = time_ms(lambda: ops.fedavg_masked_mean(x, w, m), reps=10)
-    d_ms = device_ms(lambda: ops.fedavg_masked_mean(x, w, m), "fedavg_kernel")
+    d_ms, d_from = device_ms(lambda: ops.fedavg_masked_mean(x, w, m), "fedavg_kernel")
     p_ms = time_ms(lambda: ops.fedavg_masked_mean(x, w, m, impl="ref"), reps=5, warmup=1)
     l_ms = time_ms(lambda: torch.mv(x.t(), wm) / den, reps=10)
     lib_err = float((torch.mv(x.t(), wm) / den - ops.fedavg_masked_mean(x, w, m)).abs().max())
     bound, by = fedavg_bound_ms(C, N, 4)
     print(f"phase10a K11 at the main path's largest leaf (C {C}, N {N}, f32): kernel_ms={k_ms:.4f} "
-          f"device_ms={d_ms} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} (torch.mv(x.t(), wm) / den, "
+          f"device_ms={d_ms} ({d_from}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+          f"(torch.mv(x.t(), wm) / den, "
           f"yardstick only; max |mv - kernel| {lib_err:.3e}) bound_ms={bound:.4f} ({by})  [{card}]",
           flush=True)
     del x
-    return {"cases": cases, "max_abs_err": 0.0, "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+    return {"cases": cases, "max_abs_err": 0.0, "ms": k_ms, "device_ms": d_ms,
+            "device_ms_from": d_from, "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": bound, "bound_by": by}
 
 
@@ -1436,19 +1523,316 @@ def phase10e(dev, card: str, server, before) -> dict:
     del want
     args = (rep["stacked"], rep["weights"], rep["leaf_masks"])
     tree_ms = time_ms(lambda: ops.fedavg_tree(*args), reps=3, warmup=1)
-    tree_device_ms = kernel_device_ms(lambda: ops.fedavg_tree(*args), "fedavg_kernel")
+    tree_device_ms, tree_from = device_ms(lambda: ops.fedavg_tree(*args), "fedavg_kernel", reps=1,
+                                          launches=n_leaves)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     uploads = {c: rep["masks"][c].nonzero()[:, 0].tolist() for c in range(fed.n_clients)}
     print(f"phase10e demo tail on qwen3-1.7b's trained state ({n_leaves} leaves, C {fed.n_clients}): "
           f"uploads {uploads}, {rep['uploaded']} elements uploaded; K1 {k1} launch, K11 {k11} "
           f"launches, fedavg_tree bitwise equal to impl='ref' on every leaf; tail {wall:.2f} s; "
-          f"fedavg_tree {tree_ms:.3f} ms (events), K11 device {tree_device_ms} ms in total; peak "
+          f"fedavg_tree {tree_ms:.3f} ms (events), K11 device {tree_device_ms} ms in total "
+          f"({tree_from}); peak "
           f"device memory {peak:.2f} GiB (optimizer moments freed)  [{card}]", flush=True)
     del rep, args
     return {"fedavg_masked_mean": {
         "launches": k11, "tree_ms": tree_ms, "tree_device_ms": tree_device_ms,
+        "tree_device_ms_from": tree_from,
         "main_path": "examples.compression_demo.report on phase 10d's qwen3-1.7b state",
     }, "packed_bucket_reduce_demo": k1}
+
+
+def rowq_bound_ms(C: int, N: int, block: int) -> tuple[float, str]:
+    """K5a reads (C, N) f32 once and writes (C, N) int8 and (C, ceil(N/block))
+    f32 scales; per element an abs, a max, a divide, a round and a clip. K5b
+    moves the same bytes the other way with one multiply per element."""
+    return roofline(C * N * 5 + C * -(-N // block) * 4, 5 * C * N)
+
+
+def ties_rows() -> np.ndarray:
+    """Two 256-element rows whose scale is exactly 1 (amax 127): x/s on .5
+    ties (half to even decides), on +-127 and next to it."""
+    halves = np.arange(-126.5, 127.0, 1.0, dtype=np.float32)
+    row0 = np.concatenate([halves, [127.0, -127.0]]).astype(np.float32)
+    row1 = np.float32(127.0) * np.linspace(-1, 1, 256, dtype=np.float32)
+    row1[::7] = np.nextafter(np.float32(127.0), np.float32(0.0))
+    return np.stack([row0, row1])
+
+
+def phase11a(dev, card: str) -> dict:
+    """K5a, K5b, K12a and K12b against their plain versions on the card,
+    bitwise; times and bounds at the main path's shape, and K12a/K12b over
+    fedyolov3's whole tree. -> {kernel: fields}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.models import yolov3
+    from repro_torch.models.params import flatten_with_paths, init_params
+
+    cfg = get_arch("fedyolov3")
+    tpl = yolov3.template(cfg)
+    N = sum(int(np.prod(i.shape)) for _, i in flatten_with_paths(tpl))
+    g = torch.Generator(device=dev).manual_seed(17)
+    stats = {k: {"cases": 0, "max_abs_err": 0.0}
+             for k in ("quantize_rows", "dequantize_rows", "quantize", "dequantize")}
+
+    def held(name, k, p, what):
+        torch.cuda.synchronize()
+        bits = {torch.bfloat16: torch.int16, torch.int8: torch.int8}.get(k.dtype, torch.int32)
+        check(k.dtype == p.dtype and k.shape == p.shape and torch.equal(k.view(bits), p.view(bits)),
+              f"{name} {what}: kernel != plain")
+        st = stats[name]
+        st["cases"] += 1
+        if k.numel():
+            st["max_abs_err"] = max(st["max_abs_err"], float((k.double() - p.double()).abs().max()))
+
+    def rows(C, n):
+        x = torch.randn((C, n), generator=g, device=dev) * 1e-3
+        x[:, ::97] = 0.0
+        x[0, :64] *= 1e-30
+        if n >= 2048:
+            x[-1, 1024:2048] = 0.0  # an all-zero block: the 1e-12 floor
+        return x
+
+    main = rows(3, N)
+    cases = [(main, 1024), (torch.from_numpy(ties_rows()).to(dev), 256)]
+    cases += [(rows(C, n), block) for C, n, block in ROWQ_RAGGED]
+    for x, block in cases:
+        what = f"C={x.shape[0]} N={x.shape[1]} block={block}"
+        q, sc = ops.quantize_rows(x, block=block)
+        qr, sr = ops.quantize_rows(x, block=block, impl="ref")
+        held("quantize_rows", q, qr, what + " q")
+        held("quantize_rows", sc, sr, what + " scales")
+        for dt in (torch.float32, torch.bfloat16):
+            held("dequantize_rows", ops.dequantize_rows(q, sc, dtype=dt, block=block),
+                 ops.dequantize_rows(q, sc, dtype=dt, block=block, impl="ref"), f"{what} {dt}")
+    tq, ts = ops.quantize_rows(cases[1][0], block=256)
+    check(float(ts[0, 0]) == 1.0 and tq[0, :4].tolist() == [-126, -126, -124, -124],
+          f"ties: scale {float(ts[0, 0])}, q {tq[0, :4].tolist()} (half to even expected)")
+    mq, ms_ = ops.quantize_rows(main)
+    timings = {
+        "quantize_rows": (lambda: ops.quantize_rows(main), lambda: ops.quantize_rows(main, impl="ref"),
+                          "rowquant_kernel"),
+        "dequantize_rows": (lambda: ops.dequantize_rows(mq, ms_),
+                            lambda: ops.dequantize_rows(mq, ms_, impl="ref"), "rowdequant_kernel"),
+    }
+    for name, (kern, plain, kname) in timings.items():
+        st = stats[name]
+        st["ms"], st["plain_ms"] = time_ms(kern), time_ms(plain, reps=5, warmup=1)
+        st["device_ms"], st["device_ms_from"] = device_ms(kern, kname)
+        st["bound_ms"], st["bound_by"] = rowq_bound_ms(3, N, 1024)
+        st["library_ms"] = None  # no one torch call quantizes per 1024-block
+        print(f"phase11a {name} at the quant8 round's (3, {N}), block 1024: kernel_ms={st['ms']:.4f} "
+              f"device_ms={st['device_ms']} ({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f} bound_ms="
+              f"{st['bound_ms']:.4f} ({st['bound_by']}); {st['cases']} cases bitwise-equal  [{card}]",
+              flush=True)
+    del main, mq, ms_, cases
+
+    # K12a/K12b: the tree form over fedyolov3's whole tree, one launch per leaf
+    tree = init_params(tpl, torch.Generator(device=dev).manual_seed(0))
+    leaves = list(flatten_with_paths(tree))
+    kquant.quantize.launches = kquant.dequantize.launches = 0
+    qt = ops.quantize_tree(tree)
+    back = ops.dequantize_tree(qt, tree)
+    torch.cuda.synchronize()
+    launches = {"quantize": kquant.quantize.launches, "dequantize": kquant.dequantize.launches}
+    check(launches == {"quantize": len(leaves), "dequantize": len(leaves)},
+          f"tree round trip over {len(leaves)} leaves launched {launches}")
+    qt_ref = ops.quantize_tree(tree, impl="ref")
+    back_ref = ops.dequantize_tree(qt_ref, tree, impl="ref")
+    for (path, a), (_, b) in zip(flatten_with_paths(qt), flatten_with_paths(qt_ref)):
+        held("quantize", a, b, f"leaf {path}")
+    for (path, a), (_, b) in zip(flatten_with_paths(back), flatten_with_paths(back_ref)):
+        held("dequantize", a, b, f"leaf {path}")
+    err = max(float((a - x).abs().max()) for (_, a), (_, x) in zip(flatten_with_paths(back), leaves))
+    nbytes = sum(5 * x.numel() + 4 * -(-x.numel() // 1024) for _, x in leaves)
+    bound = roofline(nbytes, 5 * N)
+    for name, kern, plain, kname in (
+            ("quantize", lambda: ops.quantize_tree(tree), lambda: ops.quantize_tree(tree, impl="ref"),
+             "rowquant_kernel"),
+            ("dequantize", lambda: ops.dequantize_tree(qt, tree),
+             lambda: ops.dequantize_tree(qt, tree, impl="ref"), "rowdequant_kernel")):
+        st = stats[name]
+        st["ms"], st["plain_ms"] = time_ms(kern, reps=5), time_ms(plain, reps=3, warmup=1)
+        st["device_ms"], st["device_ms_from"] = device_ms(kern, kname, reps=1, launches=len(leaves))
+        st["bound_ms"], st["bound_by"] = bound
+        st["library_ms"] = None
+        st["launches"] = launches[name]
+        print(f"phase11a {name} (K12) over fedyolov3's tree ({len(leaves)} leaves, {N} values, one "
+              f"launch per leaf): tree kernel_ms={st['ms']:.4f} device_ms={st['device_ms']} "
+              f"({st['device_ms_from']}, all launches) plain_ms={st['plain_ms']:.4f} "
+              f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}); every leaf bitwise-equal; "
+              f"round-trip max error "
+              f"{err:.3e}  [{card}]", flush=True)
+    return stats
+
+
+def phase11b(dev, card: str, buffer) -> None:
+    """The gathered int8 transport on a 1-rank NCCL group: phase 7a's buffer,
+    a client masked out; quant8 with the launcher's 1 x 1 mesh (K5a, the
+    int8 and scale all-gathers, the decode-reduce) == meshless K4 on the
+    card == the host's meshless plain path, bitwise; both times."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.kernels import pack
+    from repro_torch.launch import train
+
+    cfg = get_arch("fedyolov3")
+    fed = FedConfig(n_clients=4, aggregation="quant8", client_axis="data", data_axis=None,
+                    agg_impl="kernel")
+    mesh = train.client_mesh(dev)
+    x_host, x0_host = buffer
+    x, base = x_host.to(dev), x0_host[0].to(dev)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    w = mask / mask.sum()
+    runs = {}
+    for tag, where, m in (("mesh", dev, mesh), ("meshless", dev, None),
+                          ("host", torch.device("cpu"), None)):
+        agg = rounds.make_aggregator(cfg, fed, m)
+        pack.quantize_rows.launches = pack.quant8_reduce.launches = 0
+        out, st = agg.aggregate(x.to(where).clone(), w.to(where), {"base": base.to(where)},
+                                mask.to(where))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        runs[tag] = (out.cpu(), st["base"].cpu(), pack.quantize_rows.launches,
+                     pack.quant8_reduce.launches, agg)
+    for tag in ("meshless", "host"):
+        check(same_bits(runs["mesh"][0], runs[tag][0]) and same_bits(runs["mesh"][1], runs[tag][1]),
+              f"11b: quant8 on the mesh != {tag} quant8")
+    check(runs["mesh"][2:4] == (1, 0) and runs["meshless"][2:4] == (0, 1),
+          f"11b: launches (K5a, K4) mesh {runs['mesh'][2:4]} meshless {runs['meshless'][2:4]}")
+    w_d, mask_d, st0 = w.to(dev), mask.to(dev), {"base": base}
+    scratch = x.clone()
+    ms = {tag: time_ms(lambda a=runs[tag][4]: a.aggregate(scratch, w_d, st0, mask_d), reps=10)
+          for tag in ("mesh", "meshless")}
+    print(f"phase11b quant8 aggregate on (4, {x.shape[1]}) with a client masked out: 1-rank NCCL mesh "
+          f"(K5a + int8/scale all-gathers + decode-reduce) == meshless K4 == host plain, bitwise; "
+          f"mesh {ms['mesh']:.3f} ms vs meshless {ms['meshless']:.3f} ms per aggregation  [{card}]",
+          flush=True)
+
+
+def phase11c(dev, card: str) -> dict:
+    """The launcher at full width with compact participation: quant8 (K5a on
+    the 1 x 1 mesh) and eq6 (K1), 3 clients, a budget of 2. -> launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import pack
+    from repro_torch.launch import train
+    from repro_torch.models import yolov3
+
+    cfg = get_arch("fedyolov3")
+    counters = {"quantize_rows": pack.quantize_rows, "quant8_reduce": pack.quant8_reduce,
+                "packed_bucket_reduce": pack.packed_bucket_reduce,
+                "dequantize_rows": pack.dequantize_rows}
+    want = {"quant8": {"quantize_rows": 1, "quant8_reduce": 0, "dequantize_rows": 0},
+            "eq6": {"packed_bucket_reduce": 1, "quantize_rows": 0, "dequantize_rows": 0}}
+    out = {}
+    for mode, per_round in want.items():
+        args = train.build_parser().parse_args([
+            "--task", "detection", "--full-size", "--device", str(dev), "--img-size", str(IMG),
+            "--clients", str(TRAIN_CLIENTS), "--participation", "compact", "--max-participants",
+            str(COMPACT_BUDGET), "--agg", mode, "--optimizer", "sgd", "--lr", "1e-3",
+            "--local-steps", "1", "--batch", str(TRAIN_BATCH), "--rounds", str(COMPACT_ROUNDS)])
+        steps = [0]
+        real_loss = yolov3.yolo_loss
+
+        def counting_loss(*a, **kw):
+            steps[0] += 1
+            return real_loss(*a, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        yolov3.yolo_loss = counting_loss
+        try:
+            t0 = time.perf_counter()
+            run = train.train_detection(args, log=lambda m: None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            yolov3.yolo_loss = real_loss
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        server = run.server
+        losses = [r.loss for r in server.history]
+        check(len(losses) == COMPACT_ROUNDS and all(np.isfinite(losses)), f"11c {mode}: losses {losses}")
+        check(steps[0] == COMPACT_BUDGET * COMPACT_ROUNDS,
+              f"11c {mode}: {steps[0]} local steps in {COMPACT_ROUNDS} rounds, not "
+              f"{COMPACT_BUDGET} a round")
+        check(all(len(r.participants) == COMPACT_BUDGET for r in server.history),
+              f"11c {mode}: participants {[r.participants for r in server.history]}")
+        for k, n in per_round.items():
+            check(launches[k] == n * COMPACT_ROUNDS,
+                  f"11c {mode}: {k} launched {launches[k]} times in {COMPACT_ROUNDS} rounds")
+        out[mode] = launches
+        gen, _, _ = detection_suite(cfg, server.fed, batch=TRAIN_BATCH, img_size=IMG, seed=1)
+        nxt = next(gen)
+        round_ms = time_ms(lambda: server.run_round(nxt), reps=3, warmup=1)
+        mask = torch.tensor([1.0, 0.0, 1.0], device=dev)
+        scratch = server.state["params"].clone()
+        agg_ms = time_ms(lambda: server.aggregator.aggregate(scratch, mask / mask.sum(),
+                                                             server.state["agg"], mask), reps=10)
+        print(f"phase11c --agg {mode} --participation compact --clients {TRAIN_CLIENTS} "
+              f"--max-participants {COMPACT_BUDGET}: {COMPACT_ROUNDS} rounds in {wall:.2f} s, loss "
+              f"{' '.join(f'{v:.3f}' for v in losses)}; {steps[0]} local steps; launches "
+              f"{ {k: v for k, v in launches.items() if v} } (K5b {launches['dequantize_rows']}); ms "
+              f"per round {round_ms:.3f}, aggregation alone {agg_ms:.3f}; peak device memory "
+              f"{peak:.2f} GiB  [{card}]", flush=True)
+    return out
+
+
+def phase11d(dev, card: str) -> None:
+    """fedsgd at full width: one shared fedyolov3 copy trained by FLServer on
+    3 clients' batches of 8 at 416 seen as one batch of 24, 3 rounds; and one
+    round at img 64 on the card against the host (phase 5a's rtol 1e-4 /
+    atol 1e-5)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.core.server import FLServer
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    fed = FedConfig(n_clients=TRAIN_CLIENTS, aggregation="fedsgd", client_axis="data",
+                    data_axis=None)
+    # one round on the card and on the host from one state
+    batch = rounds.merge_clients(rounds.to_device(
+        next(detection_suite(cfg, fed, batch=2, img_size=64, pool_scenes=24)[0]), "cpu"))
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        state = rounds.make_state(cfg, fed, sgd(1e-3), torch.Generator().manual_seed(0), where)
+        state, m = rounds.build_fed_round(cfg, fed, sgd(1e-3))(
+            state, rounds.to_device(batch, where), rounds.uniform_weights(TRAIN_CLIENTS))
+        runs.append((float(m["loss"]), state["params"].cpu()))
+    (lc, pc), (lh, ph) = runs
+    gap = float((pc - ph).abs().max())
+    check(np.isfinite(lc) and abs(lc - lh) <= 1e-4 * abs(lh), f"11d: card loss {lc} != host {lh}")
+    check(torch.allclose(pc, ph, rtol=1e-4, atol=1e-5), f"11d: card row != host row ({gap:.3e})")
+    print(f"phase11d one fedsgd round at img 64 (3 clients x batch 2 as one batch of 6): card loss "
+          f"{lc!r} host loss {lh!r}; params max abs gap {gap:.3e} (held at rtol 1e-4 / atol 1e-5)"
+          f"  [{card}]", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    server = FLServer(cfg, fed, sgd(1e-3), device=dev)
+    gen, _, _ = detection_suite(cfg, fed, batch=TRAIN_BATCH, img_size=IMG)
+    t0 = time.perf_counter()
+    server.fit(gen, FEDSGD_ROUNDS, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [r.loss for r in server.history]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses)), f"11d: losses {losses}")
+    check(peak < FEDSGD_PEAK_GIB, f"11d: peak device memory {peak:.2f} GiB")
+    check(server.state["params"].dim() == 1 and server.state["agg"] == {}, "11d: not one shared copy")
+    nxt = next(gen)
+    round_ms = time_ms(lambda: server.run_round(nxt), reps=3, warmup=1)
+    model = server.global_params()
+    check(all(torch.isfinite(p).all() for p in model.parameters()), "11d: non-finite global model")
+    print(f"phase11d fedsgd FLServer, fedyolov3 full width, {TRAIN_CLIENTS} clients x batch "
+          f"{TRAIN_BATCH} at {IMG} as one batch of {TRAIN_CLIENTS * TRAIN_BATCH}: {FEDSGD_ROUNDS} "
+          f"rounds in {wall:.2f} s, loss {' '.join(f'{v:.3f}' for v in losses)}; ms per round "
+          f"{round_ms:.3f}; peak device memory {peak:.2f} GiB  [{card}]", flush=True)
 
 
 def main() -> None:
@@ -1648,7 +2032,7 @@ def main() -> None:
 
     # ---- phases 6 and 7: the uplink's kernels and its modes --------------
     k_stats.update(phase6(dev, card))
-    uplink_launches = phase7(dev, card)
+    uplink_launches, uplink_buffer = phase7(dev, card)
 
     # ---- phases 8 and 9: the LM kernels and the LM serve path ------------
     k_stats.update(phase8(dev, card))
@@ -1664,84 +2048,74 @@ def main() -> None:
     phase10c(dev, card)
     lm_train = phase10de(dev, card)
 
-    kernels = [{
-        "name": "nms_keep",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/nms.cu",
-        "replaces": "src/repro/kernels/detect.py:173",
-        "launches": launches,
-        "launches_training": train_launches["nms_keep"],
-        "max_abs_err": max_abs_err,
-        "ms": nms_ms,
-        "device_ms": nms_device_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "cases": n_cases,
-    }]
-    for kernel, source, replaces in (
-        ("packed_bucket_reduce", "src/repro_torch/kernels/csrc/bucket_reduce.cu",
-         "src/repro/kernels/pack.py:132"),
-        ("pairwise_iou", "src/repro_torch/kernels/csrc/iou.cu", "src/repro/kernels/detect.py:111"),
-    ):
-        st = k_stats[kernel]
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches[kernel], "max_abs_err": st["max_abs_err"],
-            "ms": st["ms"], "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
-            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": None,
-            "cases": st["cases"],
-        })
-        if kernel == "packed_bucket_reduce":
-            kernels[-1]["launches_lm_training"] = lm_train["packed_bucket_reduce"]
-            kernels[-1]["launches_demo"] = lm_train["packed_bucket_reduce_demo"]
-    for kernel, source, replaces, path in (
-        ("quant8_reduce", "src/repro_torch/kernels/csrc/quant_reduce.cu",
-         "src/repro/kernels/pack.py:285", "quant8"),
-        ("grouped_reduce", "src/repro_torch/kernels/csrc/grouped_reduce.cu",
-         "src/repro/kernels/pack.py:342", "hier"),
-        ("quant4_reduce", "src/repro_torch/kernels/csrc/quant_reduce.cu",
-         "src/repro/kernels/quant4.py:101", "quant4"),
-        ("masked_u32_sum", "src/repro_torch/kernels/csrc/masked_sum.cu",
-         "src/repro/kernels/mask.py:57", "secure"),
-    ):
-        st = k_stats[kernel]
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": uplink_launches[kernel], "main_path": f"--agg {path}, "
-            f"{uplink_launches[f'{path}_rounds']} rounds", "max_abs_err": st["max_abs_err"],
-            "ms": st["ms"], "device_ms": st["device_ms"], "plain_ms": st["plain_ms"],
-            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-            "cases": st["cases"],
-        })
-    for kernel, source, replaces in (
-        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:98"),
-        ("ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-         "src/repro/kernels/ssd_scan.py:51"),
-    ):
-        st = k_stats[kernel]
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": lm_launches[kernel]["launches"], "main_path": lm_launches[kernel]["main_path"],
-            "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
-            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            "library_ms": st["library_ms"], "cases": st["cases"],
-            "launches_training": lm_train[kernel]["launches"],
-            "training_path": lm_train[kernel]["main_path"],
-        })
-    st, main_path = k_stats["fedavg_masked_mean"], lm_train["fedavg_masked_mean"]
-    kernels.append({
-        "name": "fedavg_masked_mean", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fedavg.cu",
-        "replaces": "src/repro/kernels/fedavg.py:36",
-        "launches": main_path["launches"], "main_path": main_path["main_path"],
-        "max_abs_err": st["max_abs_err"], "ms": st["ms"], "device_ms": st["device_ms"],
-        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": st["library_ms"], "cases": st["cases"],
-        "tree_ms": main_path["tree_ms"], "tree_device_ms": main_path["tree_device_ms"],
-    })
+    # ---- phase 11: the row and block quantizers, compact, fedsgd ---------
+    k_stats.update(phase11a(dev, card))
+    phase11b(dev, card, uplink_buffer)
+    del uplink_buffer
+    compact_launches = phase11c(dev, card)
+    phase11d(dev, card)
+
+    def entry(name, source, replaces, launches, st, **extra):
+        keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "cases")
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+                **{k: st.get(k) for k in keys}, **extra}
+
+    k_stats["nms_keep"] = dict(max_abs_err=max_abs_err, ms=nms_ms, device_ms=nms_device_ms,
+                               device_ms_from="profiler", plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, cases=n_cases)
+    uplink = {path: f"--agg {path}, {uplink_launches[f'{path}_rounds']} rounds"
+              for path in ("hier", "quant4", "secure")}
+    lm = {k: dict(launches_training=lm_train[k]["launches"], training_path=lm_train[k]["main_path"],
+                  main_path=lm_launches[k]["main_path"])
+          for k in ("flash_attention", "ssd_chunk_scan")}
+    demo = lm_train["fedavg_masked_mean"]
+    kernels = [
+        entry("nms_keep", "nms.cu", "detect.py:173", launches, k_stats["nms_keep"],
+              launches_training=train_launches["nms_keep"]),
+        entry("packed_bucket_reduce", "bucket_reduce.cu", "pack.py:132",
+              train_launches["packed_bucket_reduce"], k_stats["packed_bucket_reduce"],
+              launches_lm_training=lm_train["packed_bucket_reduce"],
+              launches_demo=lm_train["packed_bucket_reduce_demo"]),
+        entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
+              k_stats["pairwise_iou"]),
+        entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],
+              k_stats["quant8_reduce"], main_path=f"FLServer quant8 without a client mesh, "
+              f"{uplink_launches['quant8_meshless_rounds']} rounds"),
+        entry("grouped_reduce", "grouped_reduce.cu", "pack.py:342", uplink_launches["grouped_reduce"],
+              k_stats["grouped_reduce"], main_path=uplink["hier"]),
+        entry("quant4_reduce", "quant_reduce.cu", "quant4.py:101", uplink_launches["quant4_reduce"],
+              k_stats["quant4_reduce"], main_path=uplink["quant4"]),
+        entry("masked_u32_sum", "masked_sum.cu", "mask.py:57", uplink_launches["masked_u32_sum"],
+              k_stats["masked_u32_sum"], main_path=uplink["secure"]),
+        entry("flash_attention", "flash_attention.cu", "flash_attention.py:98",
+              lm_launches["flash_attention"]["launches"], k_stats["flash_attention"],
+              **lm["flash_attention"]),
+        entry("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:51", lm_launches["ssd_chunk_scan"]["launches"],
+              k_stats["ssd_chunk_scan"], **lm["ssd_chunk_scan"]),
+        entry("fedavg_masked_mean", "fedavg.cu", "fedavg.py:36", demo["launches"],
+              k_stats["fedavg_masked_mean"], main_path=demo["main_path"], tree_ms=demo["tree_ms"],
+              tree_device_ms=demo["tree_device_ms"], tree_device_ms_from=demo["tree_device_ms_from"]),
+        entry("quantize_rows", "row_quant.cu", "pack.py:200", uplink_launches["quantize_rows"],
+              k_stats["quantize_rows"], launches_compact=compact_launches["quant8"]["quantize_rows"],
+              main_path=f"--agg quant8 on the launcher's 1 x 1 mesh, "
+              f"{uplink_launches['quant8_rounds']} rounds"),
+        entry("dequantize_rows", "row_quant.cu", "pack.py:231", uplink_launches["dequantize_rows"],
+              k_stats["dequantize_rows"], launches_compact=compact_launches["quant8"]["dequantize_rows"],
+              main_path="none: no round decodes the payload row-wise (the reference's tests only); "
+              "counted over phase 7b's launcher runs and its meshless quant8 run"),
+        entry("quantize", "row_quant.cu", "quant.py:38", k_stats["quantize"]["launches"],
+              k_stats["quantize"], main_path="ops.quantize_tree over fedyolov3's tree, one launch "
+              "per leaf (no runtime caller)"),
+        entry("dequantize", "row_quant.cu", "quant.py:61", k_stats["dequantize"]["launches"],
+              k_stats["dequantize"], main_path="ops.dequantize_tree over fedyolov3's tree, one "
+              "launch per leaf (no runtime caller)"),
+    ]
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # the launcher's one-rank client group
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

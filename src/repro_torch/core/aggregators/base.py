@@ -17,8 +17,16 @@ into it in place and returns it; nothing else may hold a private copy.
   numerically identical to ``None`` (a product with 1.0 is exact).
 
 ``FedConfig.agg_impl`` picks the reduction: ``"ref"`` plain torch,
-``"kernel"`` the CUDA kernels (K1, and K4, K6, K7 or K8 where a mode has
-one; their plain versions on the CPU).
+``"kernel"`` the CUDA kernels (K1, and K4, K5a, K6, K7 or K8 where a mode
+has one; their plain versions on the CPU).
+
+Client mesh (``AggContext.mesh``, a ``torch.distributed`` ``DeviceMesh``
+whose dim ``FedConfig.client_axis`` splits the C rows over S ranks): an
+aggregator with a transport of its own (``local_rows = True``: quant8's
+gathered int8 payload, hier's shard-local groups) gets the rank's own
+(C/S, N) rows with the full (C,) weights and mask, and writes its dispatch
+into them. Every other aggregator gets the whole (C, N) buffer, all-gathered
+by the round, and runs unchanged on every rank.
 
 Cross-round state (a dispatched ``base`` row, error-feedback rows, server
 optimizer moments) never aliases the round buffer: the next round's local
@@ -44,13 +52,15 @@ class AggContext:
     fed: Any  # rounds.FedConfig
     template: PyTree  # ParamInfo tree
     spec: packing.PackSpec
+    mesh: Any = None  # torch.distributed DeviceMesh (the client axis) or None
 
 
 class Aggregator:
     """Strategy interface: init_state / aggregate over the packed buffer."""
 
     name: str = ""
-    stacked: bool = True  # False -> fedsgd topology (a later slice)
+    stacked: bool = True  # False -> fedsgd topology: one shared model copy
+    local_rows: bool = False  # True -> aggregate takes the rank's own rows under a mesh
 
     def __init__(self, ctx: AggContext):
         self.ctx = ctx
@@ -106,6 +116,26 @@ class Aggregator:
         return torch.where(up[None, :], global_.to(packed.dtype)[None, :], packed, out=packed)
 
 
+def _client_shards(fed, mesh) -> int:
+    """Size of the mesh axis acting as the federation (1 without a mesh)."""
+    return packing.mesh_axis_size(mesh, fed.client_axis)
+
+
+def gather_clients(x: torch.Tensor, fed, mesh) -> torch.Tensor:
+    """All-gather each rank's leading-dim block of ``x`` over the client
+    axis, in rank order: (k, ...) -> (S k, ...), one collective (a copy on a
+    1-rank group). Without a mesh, ``x`` itself."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return x
+    S = _client_shards(fed, mesh)
+    out = torch.empty((S * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    # the name torch 2.11 has; later versions keep it beside all_gather_single
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.get_group(fed.client_axis))
+    return out
+
+
 _REGISTRY: dict[str, type[Aggregator]] = {}
 
 
@@ -120,10 +150,7 @@ def get(name: str) -> type[Aggregator]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise ValueError(
-            f"unknown aggregation {name!r}; the port has: {sorted(_REGISTRY)} "
-            "(the fedsgd topology belongs to a later slice)"
-        ) from None
+        raise ValueError(f"unknown aggregation {name!r}; the port has: {sorted(_REGISTRY)}") from None
 
 
 def names() -> tuple[str, ...]:

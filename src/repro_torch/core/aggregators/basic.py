@@ -1,6 +1,5 @@
 """Baseline aggregators (port of ``repro/core/aggregators/basic.py``):
-Eq. 5 dense FedAvg and static layer schedules. The FedSGD topology belongs
-to a later slice."""
+Eq. 5 dense FedAvg, static layer schedules and the FedSGD topology."""
 from __future__ import annotations
 
 import numpy as np
@@ -45,3 +44,17 @@ class StaticTopN(Aggregator):
         wmask = weights.float()[:, None] * bucket_mask[None, :]
         g, den_b = self._mean(packed, wmask, mask)
         return self._dispatch_uploaded(g, den_b, packed), agg_state
+
+
+@register
+class FedSGD(Aggregator):
+    """FedSGD-equivalent topology: clients are data-parallel shards of ONE
+    shared model copy, so there is no client-stacked buffer to aggregate
+    (param-averaging == gradient-averaging for E = 1). ``core.rounds``
+    branches on ``stacked``, never on the mode name."""
+
+    name = "fedsgd"
+    stacked = False
+
+    def aggregate(self, packed, weights, agg_state, mask=None):
+        raise RuntimeError("fedsgd runs one shared model copy; nothing to aggregate")

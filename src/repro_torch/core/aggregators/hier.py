@@ -19,15 +19,23 @@ row goes to all its members (the edge server redistributes).
 
 At ``G == 1`` and ``G == C`` hier delegates verbatim to the ``hier_base``
 aggregator over the full cohort: both are the flat path itself, bit for
-bit. Shard-local groups over a sharded client axis belong to the slice
-that shards it.
+bit.
+
+Sharded client axis: with a mesh whose client axis has S > 1 ranks, each
+rank reduces its own groups (one K6 launch over its C/S rows): groups must
+be shard-local ((C/S) % G == 0, validated at build), so every group mean
+completes without communication, and the only collective is the gather of
+the small (C/G, N) group-row operand (and its (C/G,) weights) into the
+outer reduce, which every rank runs on all C/G rows.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core import packing
-from repro_torch.core.aggregators.base import AggContext, Aggregator, get, register
+from repro_torch.core.aggregators.base import (
+    AggContext, Aggregator, _client_shards, gather_clients, get, register,
+)
 
 
 @register
@@ -52,12 +60,27 @@ class Hier(Aggregator):
             )
         self.group_size = G
         self.ngroups = C // G
+        self._shards = _client_shards(fed, ctx.mesh)
         self._delegate = G in (1, C)
-        # the delegate sees the whole cohort; otherwise the outer reduce sees
-        # the C/G group rows as its clients
-        n_outer = C if self._delegate else self.ngroups
-        outer_fed = dataclasses.replace(fed, n_clients=n_outer, aggregation=base, group_size=0)
-        self._impl = base_cls(dataclasses.replace(ctx, fed=outer_fed))
+        if self._delegate:
+            # the delegate sees the whole cohort (and the mesh): it IS the
+            # flat path, and takes its rows as the base takes them
+            self._impl = base_cls(dataclasses.replace(
+                ctx, fed=dataclasses.replace(fed, aggregation=base, group_size=0)))
+            self.local_rows = self._impl.local_rows
+            return
+        if self._shards > 1 and (C // self._shards) % G:
+            raise ValueError(
+                f"hier: groups must be shard-local — n_clients={C} over "
+                f"{self._shards} '{fed.client_axis}' shards leaves "
+                f"{C // self._shards} rows per shard, not divisible by "
+                f"group_size={G}"
+            )
+        self.local_rows = True
+        # the outer reduce sees the C/G group rows as its clients, on every
+        # rank: the gathered (C/G, N) operand is the one cross-rank merge
+        outer_fed = dataclasses.replace(fed, n_clients=self.ngroups, aggregation=base, group_size=0)
+        self._impl = base_cls(dataclasses.replace(ctx, fed=outer_fed, mesh=None))
 
     def init_state(self, packed0):
         if self._delegate:
@@ -69,12 +92,17 @@ class Hier(Aggregator):
     def aggregate(self, packed, weights, agg_state, mask=None):
         if self._delegate:
             return self._impl.aggregate(packed, weights, agg_state, mask)
-        w = self._masked_weights(weights, mask)
-        rows, den = packing.grouped_weighted_mean(packed, w, self.group_size,
-                                                  impl=self.ctx.fed.agg_impl)
+        fed = self.ctx.fed
+        own = packing.packed_pspec(fed.n_clients, fed.client_axis, self.ctx.mesh)
+        w = self._masked_weights(weights, mask)[own]
+        rows, den = packing.grouped_weighted_mean(packed, w, self.group_size, impl=fed.agg_impl)
+        if self._shards > 1:  # this rank's groups -> all C/G of them
+            rows = gather_clients(rows, fed, self.ctx.mesh)
+            den = gather_clients(den, fed, self.ctx.mesh)
         gmask = (den > 0).float()  # empty groups drop out
         out_g, agg_state = self._impl.aggregate(rows, den, agg_state, gmask)
-        C, N = packed.shape
-        packed.view(self.ngroups, self.group_size, N).copy_(
-            out_g.to(packed.dtype)[:, None, :].expand(self.ngroups, self.group_size, N))
+        n_own, N = packed.shape[0] // self.group_size, packed.shape[1]
+        g0 = own.start // self.group_size
+        packed.view(n_own, self.group_size, N).copy_(
+            out_g[g0: g0 + n_own].to(packed.dtype)[:, None, :].expand(n_own, self.group_size, N))
         return packed, agg_state

@@ -20,7 +20,7 @@ One K7 launch per round under ``agg_impl="kernel"``
 from __future__ import annotations
 
 from repro_torch.core import packing
-from repro_torch.core.aggregators.base import Aggregator, register
+from repro_torch.core.aggregators.base import Aggregator, _client_shards, register
 
 
 @register
@@ -32,6 +32,13 @@ class Quant4(Aggregator):
         if ctx.fed.quant4_mode not in ("stochastic", "nearest", "skip"):
             raise ValueError(
                 f"quant4_mode={ctx.fed.quant4_mode!r} not in ('stochastic', 'nearest', 'skip')"
+            )
+        shards = _client_shards(ctx.fed, ctx.mesh)
+        if shards > 1:
+            raise ValueError(
+                f"quant4 has no sharded int4 collective; '{ctx.fed.client_axis}' "
+                f"mesh axis must be 1 (got {shards}) — use quant8 for the "
+                f"gathered transport"
             )
 
     def init_state(self, packed0):

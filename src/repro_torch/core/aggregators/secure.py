@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
-from repro_torch.core.aggregators.base import Aggregator, register
+from repro_torch.core.aggregators.base import Aggregator, _client_shards, register
 
 MAX_SECURE_CLIENTS = 32
 
@@ -40,6 +40,12 @@ class Secure(Aggregator):
             raise ValueError(
                 f"secure pairwise masking is O(C^2); n_clients={ctx.fed.n_clients} "
                 f"exceeds the build-time bound {MAX_SECURE_CLIENTS}"
+            )
+        shards = _client_shards(ctx.fed, ctx.mesh)
+        if shards > 1:
+            raise ValueError(
+                f"secure masking needs every client row on one host; "
+                f"'{ctx.fed.client_axis}' mesh axis must be 1 (got {shards})"
             )
 
     def init_state(self, packed0):

@@ -81,6 +81,29 @@ def build_pack_spec(cfg, template: PyTree) -> PackSpec:
     return PackSpec(off, comp.n_score_buckets(cfg), tuple(slots))
 
 
+def mesh_axis_size(mesh, axis: str) -> int:
+    """Size of the ``torch.distributed`` ``DeviceMesh`` dim named ``axis``
+    (1 without a mesh or without such a dim)."""
+    names = () if mesh is None else (mesh.mesh_dim_names or ())
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
+def packed_pspec(n_clients: int, client_axis: str, mesh=None) -> slice:
+    """The torch meaning of the reference's ``packed_pspec``: the rows of the
+    (C, N_total) buffer (and of every moment buffer) this rank owns. The
+    client axis splits C into contiguous blocks of C/S rows, block r on the
+    rank at coordinate r; the flat dim stays whole on every rank."""
+    if mesh_axis_size(mesh, "model") > 1:
+        raise NotImplementedError("a 'model' mesh axis larger than 1 (the flat dim sharded "
+                                  "over ranks, FSDP-style) is slice 8")
+    S = mesh_axis_size(mesh, client_axis)
+    if S == 1:
+        return slice(0, n_clients)
+    k = n_clients // S
+    r = mesh.get_local_rank(client_axis)
+    return slice(r * k, (r + 1) * k)
+
+
 @functools.lru_cache(maxsize=16)
 def bucket_ids(spec: PackSpec) -> np.ndarray:
     """Explicit (N_total,) int32 bucket id per element (the K1 operand)."""
@@ -324,18 +347,27 @@ def masked_bucket_mean(
 # quant8 transport: fused encode -> decode -> reduce (no int8 payload)
 # ---------------------------------------------------------------------------
 
-def dequant_blocks(xb: torch.Tensor, q_max: float, u: torch.Tensor | None = None) -> torch.Tensor:
-    """(..., nb, block) f32 -> dequant(quant(xb)) per block, symmetric with
+def quant_blocks(xb: torch.Tensor, q_max: float,
+                 u: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., nb, block) f32 -> (q (..., nb, block) f32 holding integers in
+    [-q_max, q_max], scale (..., nb) f32), symmetric per block with
     ``scale = max(amax, 1e-12) / q_max``. ``u`` None: nearest,
     ``clip(round(x/s))`` (half to even); else stochastic,
     ``clip(floor(x/s + u))``, clipped AFTER the floor (7 + u can round to
     8.0 in f32). Every op is one IEEE rounding, so the CUDA kernels
-    (``kernels/csrc/quant_reduce.cu``) reproduce it bit for bit."""
+    (``kernels/csrc/quant_reduce.cu``, ``row_quant.cu``) reproduce it bit
+    for bit."""
     amax = torch.amax(torch.abs(xb), dim=-1)
     scale = exact_div(torch.clamp_min(amax, 1e-12), q_max)
     v = xb / scale[..., None]
     q = torch.round(v) if u is None else torch.floor(v + u)
-    q = torch.clamp(q, -q_max, q_max)
+    return torch.clamp(q, -q_max, q_max), scale
+
+
+def dequant_blocks(xb: torch.Tensor, q_max: float, u: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., nb, block) f32 -> dequant(quant(xb)) per block
+    (:func:`quant_blocks`, then ``q * scale``)."""
+    q, scale = quant_blocks(xb, q_max, u)
     return q * scale[..., None]
 
 
@@ -385,6 +417,54 @@ def quant8_mean_ref(delta: torch.Tensor, weights: torch.Tensor, block: int) -> t
     """Fused quant8 encode -> reduce (|q| <= 127 is exact in f32, so this IS
     the int8 round trip): :func:`quant_mean` with Q = 127."""
     return quant_mean(delta, weights, block, 127.0)
+
+
+# ---------------------------------------------------------------------------
+# row-block int8 quantization of the packed buffer (the gathered quant8
+# transport of a client mesh)
+# ---------------------------------------------------------------------------
+
+def quantize_rows_ref(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, N) f32 -> (q int8 (C, N), scales f32 (C, ceil(N/block))), the
+    ragged tail zero-padded for the scale (K5a's plain arithmetic)."""
+    C, N = x.shape
+    xp, _ = _pad_cols(x.float(), block)
+    q, scale = quant_blocks(xp.reshape(C, -1, block), 127.0)
+    return q.to(torch.int8).reshape(C, -1)[:, :N].contiguous(), scale
+
+
+def dequantize_rows_ref(q: torch.Tensor, scales: torch.Tensor, block: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(C, N) int8 + (C, ceil(N/block)) scales -> (C, N) ``q * scale`` cast
+    to ``dtype`` (K5b's plain arithmetic)."""
+    C, N = q.shape
+    qp, _ = _pad_cols(q.float(), block)
+    d = qp.reshape(C, -1, block) * scales.float()[..., None]
+    return d.reshape(C, -1)[:, :N].to(dtype).contiguous()
+
+
+def dequant_reduce_ref(q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+                       block: int) -> torch.Tensor:
+    """Fused decode -> reduce of the gathered int8 payload: (C, N) int8 +
+    (C, ceil(N/block)) scales + (C,) weights -> (N,) f32 ``sum_c w_c q_c
+    s_c``, one row decoded at a time (no (C, N) f32 buffer). The clients
+    are :func:`quant_mean`'s chain under the same CHAIN_MAX_CLIENTS cutover,
+    so the gathered transport equals the fused one (K4, or
+    :func:`quant8_mean_ref`) bit for bit."""
+    C, N = q.shape
+    w = weights.float()
+
+    def dq(c):
+        row, _ = _pad_cols(q[c].float(), block)
+        return (row.reshape(-1, block) * scales[c].float()[:, None]).reshape(-1)
+
+    if C > CHAIN_MAX_CLIENTS:
+        acc = w @ torch.stack([dq(c) for c in range(C)])
+    else:
+        acc = dq(0) * w[0]
+        for c in range(1, C):
+            acc = acc + dq(c) * w[c]
+    return acc[:N]
 
 
 # ---------------------------------------------------------------------------

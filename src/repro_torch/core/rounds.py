@@ -21,12 +21,29 @@ the same layout (``optim``). One round:
 
 Participation comes from the Task Scheduler as NumPy (``participation_input``):
 ``full`` trains every client; ``masked`` trains only the clients with
-``mask[c] == 1``, the others keep their params and optimizer rows untouched
-and report loss 0. Either way the mask, when given, rides into the
-aggregation and the mean loss (a bare weight vector means mask ``None``).
-Compact participation, the fedsgd topology and the sharded client axis
-(slice 3b), and the tree layout (slice 9) raise ``NotImplementedError``, as
-do the LM families other than dense and ssm (slice 7c).
+``mask[c] == 1``; ``compact`` trains exactly the K = ``max_participants``
+clients of the scheduler's ``idx`` (the reference gathers those K rows into
+a compact axis for its vmap; the port's client loop trains them in place).
+Clients that do not train keep their params and optimizer rows untouched
+and report loss 0. The mask, when given, rides into the aggregation and the
+mean loss (a bare weight vector means mask ``None``).
+
+The fedsgd topology (``aggregators.FedSGD``, ``stacked = False``) keeps one
+shared model copy: ``state["params"]`` is one (N_total,) packed row with
+(N_total,) moments, trained on the cohort's batch as one batch
+(``(E, C b, ...)``, the reference's layout); nothing is aggregated.
+
+A client mesh (``mesh``, a ``torch.distributed`` ``DeviceMesh`` with a dim
+named ``FedConfig.client_axis`` of S ranks) shards the client axis: rank r
+holds and trains rows ``[r C/S, (r+1) C/S)`` of the packed buffer and of
+every moment buffer (``packing.packed_pspec``), reads its clients' rows of
+the whole-cohort batch, and all-gathers ``client_loss``, so every rank
+reports the same metrics. quant8 and hier move their own rows
+(``Aggregator.local_rows``); every other aggregator gets the whole buffer by
+one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
+(what XLA's SPMD does for them in the reference). The tree layout (slice 9)
+raises ``NotImplementedError``, as do the LM families other than dense and
+ssm (slice 7c).
 """
 from __future__ import annotations
 
@@ -54,7 +71,7 @@ class FedConfig:
     data_axis: str | None = "data"  # within-client data-parallel axis
     round_idx_static: int = 0  # static_topn: trace-time round phase
     microbatches: int = 1  # grad-accumulation splits of each local step
-    agg_impl: str = "ref"  # ref (plain torch) | kernel (the K1, K4, K6, K7, K8 CUDA kernels)
+    agg_impl: str = "ref"  # ref (plain torch) | kernel (the K1, K4, K5a, K6, K7, K8 CUDA kernels)
     quant_block: int = 1024  # quant8: elements per int8 scale block
     server_lr: float = 1.0  # fedavgm/fedadam server step (fedadam wants ~0.01-0.1)
     server_momentum: float = 0.9  # fedavgm momentum / fedadam b1
@@ -109,13 +126,16 @@ def make_template(cfg) -> PyTree:
     return transformer.template(cfg)
 
 
-def make_aggregator(cfg, fed: FedConfig) -> aggregators.Aggregator:
+def make_aggregator(cfg, fed: FedConfig, mesh=None) -> aggregators.Aggregator:
     """Resolve ``FedConfig.aggregation`` through the registry (unknown names
     and configurations the port does not run yet fail here)."""
     _check_ported(fed)
+    if mesh is not None and fed.client_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"client_axis={fed.client_axis!r} is not a dim of the mesh "
+                         f"{mesh.mesh_dim_names}")
     tpl = make_template(cfg)
     spec = packing.build_pack_spec(cfg, tpl)
-    ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec)
+    ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec, mesh=mesh)
     return aggregators.get(fed.aggregation)(ctx)
 
 
@@ -124,14 +144,6 @@ def _check_ported(fed: FedConfig) -> None:
         raise NotImplementedError("state_layout='tree' (the legacy reference path) is slice 9")
     if fed.state_layout != "flat":
         raise ValueError(f"unknown state_layout {fed.state_layout!r}; expected flat|tree")
-    if fed.aggregation == "fedsgd":
-        raise NotImplementedError("the fedsgd topology is ported in slice 3b "
-                                  "(with compact participation and the sharded client axis)")
-    if fed.participation == "compact":
-        raise NotImplementedError("compact participation is ported in slice 3b "
-                                  "(with the fedsgd topology and the sharded client axis)")
-    if fed.participation not in ("full", "masked"):
-        raise ValueError(f"unknown participation {fed.participation!r}; expected full|masked|compact")
     if fed.microbatches < 1:
         raise ValueError(f"microbatches={fed.microbatches} must be >= 1")
     if fed.agg_impl not in ("ref", "kernel"):
@@ -143,59 +155,102 @@ def _check_ported(fed: FedConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Generator | None = None,
-               device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32) -> PyTree:
+               device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
+               mesh=None) -> PyTree:
     """The flat round state on ``device``: every client row starts from one
     model (the server's dispatch) drawn by ``init_params`` from
-    ``generator`` (seed 0 when None). Parity with the reference comes from
-    carrying its state over (``models.convert.state_from_reference``)."""
+    ``generator`` (seed 0 when None); under a client mesh, this rank's rows
+    (``packing.packed_pspec``) and their moments. The fedsgd topology holds
+    the one shared (N_total,) row, its (N_total,) moments and no aggregator
+    state. Parity with the reference comes from carrying its state over
+    (``models.convert``)."""
     from repro_torch import device as D
 
     dev = D.resolve(device)
-    agg = make_aggregator(cfg, fed)
+    agg = make_aggregator(cfg, fed, mesh)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     tree = mp.init_params(agg.ctx.template, generator, dtype)
-    row = packing.pack(agg.ctx.spec, mp.map_tree(lambda x: x[None], tree), dtype)
-    packed = row.to(dev).expand(fed.n_clients, -1).contiguous()
+    row = packing.pack(agg.ctx.spec, mp.map_tree(lambda x: x[None], tree), dtype).to(dev)
+    if not agg.stacked:
+        return {"params": row[0], "opt": {k: v[0] for k, v in optimizer.init(row).items()},
+                "agg": {}, "round": 0}
+    full = row.expand(fed.n_clients, -1)  # a view: every client holds the dispatch
+    packed = full[packing.packed_pspec(fed.n_clients, fed.client_axis, mesh)].contiguous()
     return {
         "params": packed,
         "opt": optimizer.init(packed),
-        "agg": agg.init_state(packed),
+        "agg": agg.init_state(full),
         "round": 0,
     }
 
 
 def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
-    """Edge helper: the client-stacked param tree of a flat state (one copy;
-    HWIO for fedyolov3, the template's layout for an LM)."""
+    """Edge helper: the param tree of a flat state (one copy; HWIO for
+    fedyolov3, the template's layout for an LM), client-stacked for a
+    stacked topology and the one shared tree for fedsgd."""
     tpl = make_template(cfg)
-    return packing.unpack(packing.build_pack_spec(cfg, tpl), state["params"], tpl)
+    spec = packing.build_pack_spec(cfg, tpl)
+    params = state["params"]
+    if params.dim() == 1:  # fedsgd: one shared row
+        return mp.map_tree(lambda x: x[0], packing.unpack(spec, params[None], tpl))
+    return packing.unpack(spec, params, tpl)
 
 
 # ---------------------------------------------------------------------------
 # Participation input and batches
 # ---------------------------------------------------------------------------
 
+def static_budget(fed: FedConfig) -> int:
+    """Compact mode's static per-round participant count K."""
+    return fed.max_participants or fed.n_clients
+
+
 def participation_input(fed: FedConfig, mask, weights, idx=None) -> dict:
     """Host arrays from the scheduler -> the round's participation operands,
-    ``{"mask": (C,) f32, "weights": (C,) f32}`` host tensors (the round reads
-    the mask on the host to pick the clients that train, then moves both to
-    its device)."""
-    if fed.participation == "compact" or idx is not None:
-        raise NotImplementedError("compact participation is ported in slice 3b "
-                                  "(with the fedsgd topology and the sharded client axis)")
-    return {
+    ``{"mask": (C,) f32, "weights": (C,) f32[, "idx": (K,) int32]}`` host
+    tensors (the round reads the mask, or under compact the idx, on the host
+    to pick the clients that train, then moves mask and weights to its
+    device). ``idx`` is required, and only used, under compact: exactly K
+    distinct client indices."""
+    part = {
         "mask": torch.as_tensor(np.asarray(mask, np.float32)),
         "weights": torch.as_tensor(np.asarray(weights, np.float32)),
     }
+    if fed.participation == "compact":
+        if idx is None:
+            raise ValueError("compact participation needs the (K,) idx vector")
+        idx = np.asarray(idx, np.int32)
+        if idx.shape != (static_budget(fed),):
+            raise ValueError(
+                f"compact idx has shape {idx.shape}; the static budget is "
+                f"({static_budget(fed)},) — the scheduler must emit exactly K indices"
+            )
+        if len(np.unique(idx)) != idx.shape[0]:
+            # training rows by idx must be one-to-one: a duplicate would
+            # silently train a client twice
+            raise ValueError(
+                f"compact idx {idx.tolist()} has duplicate "
+                "client indices; the scheduler must select K distinct clients"
+            )
+        part["idx"] = torch.from_numpy(idx)
+    return part
 
 
 def _parse_participation(part, device: torch.device):
-    """A bare (C,) weight vector means full participation (mask None); a
-    dict is ``participation_input``'s output."""
+    """A bare (C,) weight vector means full participation (mask and idx
+    None); a dict is ``participation_input``'s output."""
     if isinstance(part, dict):
-        return part["weights"].float().to(device), part["mask"].float()
-    return torch.as_tensor(part).float().to(device), None
+        return part["weights"].float().to(device), part["mask"].float(), part.get("idx")
+    return torch.as_tensor(part).float().to(device), None, None
+
+
+def _check_compact_idx(fed: FedConfig, idx) -> None:
+    if fed.participation == "compact" and idx is None:
+        raise ValueError(
+            "compact participation: pass participation_input(fed, mask, "
+            "weights, idx), not a bare weight vector"
+        )
 
 
 def to_device(batch: PyTree, device: str | torch.device) -> PyTree:
@@ -212,20 +267,47 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
 
     batch: ``{"images" (C, E, b, H, W, 3), "targets": per scale {"obj",
     "box", "cls"} (C, E, b, ...)}`` for detection, ``{"tokens" (C, E, b,
-    S)}`` for an LM, on the state's device (``to_device``).
+    S)}`` for an LM, on the state's device (``to_device``); the whole
+    cohort's batch on every rank of a client mesh. fedsgd takes the
+    cohort's batch as one, ``(E, C b, ...)`` (:func:`merge_clients`).
     part: a bare (C,) normalized weight vector (full participation) or the
     ``participation_input`` dict. metrics: ``{"loss": participant mean,
     "client_loss": (C,)}``, tensors on the device (no host sync).
+
+    mesh: a ``torch.distributed`` ``DeviceMesh`` with a dim named
+    ``fed.client_axis`` (module docstring), or None.
     """
-    if mesh is not None:
-        raise NotImplementedError("the sharded client axis (torch.distributed; K5a/K5b, sharded "
-                                  "quant8, shard-local hier) is ported in slice 3b")
     if fed.mode != "sync":
         raise ValueError(
             f"build_fed_round builds the synchronous round (mode='sync'), got "
             f"mode={fed.mode!r}; the async engines are ported in slice 4"
         )
-    agg = make_aggregator(cfg, fed)
+    agg = make_aggregator(cfg, fed, mesh)
+    if fed.participation not in ("full", "masked", "compact"):
+        raise ValueError(
+            f"unknown participation {fed.participation!r}; expected full|masked|compact"
+        )
+    if fed.participation != "full" and not agg.stacked:
+        raise ValueError(
+            f"participation={fed.participation!r} needs a client-stacked "
+            "topology; fedsgd runs one shared model copy (use participation='full')"
+        )
+    if fed.participation == "compact" and not 1 <= static_budget(fed) <= fed.n_clients:
+        raise ValueError(
+            f"compact participation: max_participants={fed.max_participants} "
+            f"must be in [1, n_clients={fed.n_clients}]"
+        )
+    C = fed.n_clients
+    S = packing.mesh_axis_size(mesh, fed.client_axis)
+    if S > 1 and C % S:
+        raise ValueError(
+            f"sharded client axis: n_clients={C} must be "
+            f"divisible by the '{fed.client_axis}' mesh axis ({S} shards)"
+        )
+    if S > 1 and not agg.stacked:
+        raise NotImplementedError("fedsgd over a sharded client axis (a data-parallel gradient "
+                                  "all-reduce of the one shared copy) is slice 8")
+    own = packing.packed_pspec(C, fed.client_axis, mesh)
     spec, tpl = agg.ctx.spec, agg.ctx.template
     loss_fn = loss_for(cfg)
 
@@ -260,36 +342,63 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
             del g
         return packing.exact_div(tot, float(m)), packing.exact_div(g_sum, float(m))
 
-    def local_train(c: int, packed: torch.Tensor, opt: dict, batch: PyTree) -> torch.Tensor:
-        """Client c's E local steps on its row, in place -> mean step loss."""
-        row = packed[c]
-        opt_row = {k: v[c] for k, v in opt.items()}
+    def local_train(row: torch.Tensor, opt_row: dict, batch: PyTree) -> torch.Tensor:
+        """E local steps on one packed row and its optimizer rows, in place;
+        ``batch`` leaves are (E, b, ...) -> mean step loss."""
         losses = []
         for e in range(fed.local_steps):
-            loss, g = grads_of(row, mp.map_tree(lambda x: x[c, e], batch))
+            loss, g = grads_of(row, mp.map_tree(lambda x: x[e], batch))
             with torch.no_grad():
                 optimizer.update(row, g, opt_row)
             losses.append(loss)
         return torch.stack(losses).mean()
 
+    def fedsgd_round(state: PyTree, batch: PyTree):
+        # clients = data-parallel shards of one batch, so param-averaging is
+        # gradient-averaging for E = 1: one shared copy trains on it
+        loss = local_train(state["params"], state["opt"], batch)
+        out = {**state, "round": state["round"] + 1}
+        return out, {"loss": loss, "client_loss": loss.expand(C).clone()}
+
     def fed_round(state: PyTree, batch: PyTree, part):
+        if not agg.stacked:
+            return fedsgd_round(state, batch)
         packed = state["params"]
-        weights, mask = _parse_participation(part, packed.device)
-        C = fed.n_clients
-        # full participation trains every client (the mask still shapes the
-        # aggregate and the mean loss); masked trains the selected ones only
-        gated = fed.participation == "masked" and mask is not None
-        on = [m > 0 for m in mask.tolist()] if gated else [True] * C
-        loss = torch.zeros(C, dtype=torch.float32, device=packed.device)
-        for c in range(C):
+        weights, mask, idx = _parse_participation(part, packed.device)
+        _check_compact_idx(fed, idx)
+        if fed.participation == "compact":
+            on = np.zeros(C, bool)
+            on[idx.numpy()] = True
+        elif fed.participation == "masked" and mask is not None:
+            on = mask.numpy() > 0
+        else:  # full participation trains every client; the mask still
+            on = np.ones(C, bool)  # shapes the aggregate and the mean loss
+        loss = torch.zeros(packed.shape[0], dtype=torch.float32, device=packed.device)
+        for c in range(own.start, own.stop):
             if on[c]:
-                loss[c] = local_train(c, packed, state["opt"], batch)
+                r = c - own.start
+                loss[r] = local_train(packed[r], {k: v[r] for k, v in state["opt"].items()},
+                                      mp.map_tree(lambda x: x[c], batch))
         mask_d = None if mask is None else mask.to(packed.device)
-        packed, agg_state = agg.aggregate(packed, weights, state["agg"], mask_d)
+        if S > 1:
+            loss = aggregators.gather_clients(loss, fed, mesh)
+        if S > 1 and not agg.local_rows:
+            full, agg_state = agg.aggregate(aggregators.gather_clients(packed, fed, mesh),
+                                            weights, state["agg"], mask_d)
+            packed.copy_(full[own])
+        else:
+            packed, agg_state = agg.aggregate(packed, weights, state["agg"], mask_d)
         out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
         return out, _round_metrics(loss, mask_d)
 
     return fed_round
+
+
+def merge_clients(batch: PyTree) -> PyTree:
+    """A client-stacked batch ``(C, E, b, ...)`` -> fedsgd's one batch
+    ``(E, C b, ...)`` (client-major within each step)."""
+    return mp.map_tree(lambda x: x.transpose(0, 1).reshape(
+        (x.shape[1], x.shape[0] * x.shape[2]) + tuple(x.shape[3:])), batch)
 
 
 def _round_metrics(loss: torch.Tensor, mask: torch.Tensor | None) -> dict:

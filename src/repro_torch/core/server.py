@@ -13,6 +13,13 @@ the per-client mAP back into the same EMA; it is detection-only. An LM task
 (qwen3-1.7b, mamba2-1.3b) runs the same rounds, scheduler and COS
 checkpoints; its global model is a param tree.
 
+Compact participation asks the scheduler for exactly K =
+``rounds.static_budget`` clients a round and hands their ``idx`` to the
+round. The fedsgd topology trains one shared copy on the cohort's batch
+merged into one (``rounds.merge_clients``). A client mesh (``mesh``, a
+``torch.distributed`` ``DeviceMesh``) goes to the round; every rank of it
+runs the same server, with the same seeds, in step.
+
 The async control plane (``mode="async"``) and the shared simulated clock
 belong to later slices.
 """
@@ -70,6 +77,7 @@ class FLServer:
         load_model: explorer.ClientLoadModel | None = None,
         clock=None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if fed.mode == "async":
             raise NotImplementedError("mode='async' (the buffered engines) is ported in slice 4")
@@ -86,16 +94,19 @@ class FLServer:
         self.checkpoint_every = checkpoint_every
         self.scheduler = scheduler or TaskScheduler(fed.n_clients, SchedulerConfig())
         self.load_model = load_model or explorer.ClientLoadModel(fed.n_clients, seed=seed)
+        self.mesh = mesh
+        # compact rounds need the scheduler to emit exactly K indices
+        self._k_static = rounds.static_budget(fed) if fed.participation == "compact" else None
         # registry dispatch: an unknown mode or an unported configuration
         # fails here, before any state is allocated
-        self.aggregator = rounds.make_aggregator(cfg, fed)
+        self.aggregator = rounds.make_aggregator(cfg, fed, mesh)
         # an LM's initial model is drawn on the server's device (a full-width
         # model is 1.7 B values); fedyolov3's on the host, as before
         gen_device = "cpu" if cfg.family == "yolo" else self.device
         self.state = rounds.make_state(cfg, fed, optimizer,
                                        torch.Generator(device=gen_device).manual_seed(seed),
-                                       self.device)
-        self._fed_round = rounds.build_fed_round(cfg, fed, optimizer)
+                                       self.device, mesh=mesh)
+        self._fed_round = rounds.build_fed_round(cfg, fed, optimizer, mesh)
         self.history: list[RoundRecord] = []
         self.eval_history: list[EvalRecord] = []
         self._evaluator = None  # (max_detections, evaluate), built lazily
@@ -107,28 +118,45 @@ class FLServer:
 
     def global_params(self) -> FedYOLOv3 | PyTree:
         """The dispatchable global model from row 0 of the packed state
-        (every row holds the global model after a sync round): a fresh
-        :class:`FedYOLOv3` on the server's device, or for an LM a param tree
-        copied out of the row (the reference's one-row unpack). This is the
-        pack/unpack edge: checkpoint PUT, evaluation and dispatch to
-        serving."""
+        (every row holds the global model after a sync round), or fedsgd's
+        one shared copy: a fresh :class:`FedYOLOv3` on the server's device,
+        or for an LM a param tree copied out of the row (the reference's
+        one-row unpack). This is the pack/unpack edge: checkpoint PUT,
+        evaluation and dispatch to serving. Over a sharded client axis row 0
+        lives on the axis' first rank, which broadcasts it: every rank calls
+        this together."""
         spec, tpl = self.aggregator.ctx.spec, self.aggregator.ctx.template
+        row = self.state["params"] if not self.aggregator.stacked else self._row0()
         if self.cfg.family != "yolo":
-            tree = packing.unpack(spec, self.state["params"][:1], tpl)
-            return map_tree(lambda x: x[0], tree)
-        views = packing.unpack_views(spec, self.state["params"][0], tpl)
+            return map_tree(lambda x: x[0], packing.unpack(spec, row[None], tpl))
+        views = packing.unpack_views(spec, row, tpl)
         with self.device:
             return FedYOLOv3(self.cfg, weights=views).eval()
 
+    def _row0(self) -> torch.Tensor:
+        packed = self.state["params"]
+        axis = self.fed.client_axis
+        if packing.mesh_axis_size(self.mesh, axis) == 1:
+            return packed[0]
+        import torch.distributed as dist
+
+        group = self.mesh.get_group(axis)
+        row = packed[0].clone()  # the first rank's row 0 is global row 0
+        dist.broadcast(row, src=dist.get_global_rank(group, 0), group=group)
+        return row
+
     def run_round(self, batch: PyTree) -> RoundRecord:
-        """One sync round. ``batch`` may hold NumPy arrays or tensors; it is
-        moved to the server's device."""
+        """One sync round. ``batch`` (the cohort's, client-stacked (C, E, b,
+        ...)) may hold NumPy arrays or tensors; it is moved to the server's
+        device."""
         t0 = time.time()
         loads = self.load_model.step()  # one tick per round
-        sel = self.scheduler.participation(loads)
-        part = rounds.participation_input(self.fed, sel["mask"], sel["weights"])
-        self.state, metrics = self._fed_round(
-            self.state, rounds.to_device(batch, self.device), part)
+        sel = self.scheduler.participation(loads, k_static=self._k_static)
+        part = rounds.participation_input(self.fed, sel["mask"], sel["weights"], sel.get("idx"))
+        batch = rounds.to_device(batch, self.device)
+        if not self.aggregator.stacked:
+            batch = rounds.merge_clients(batch)
+        self.state, metrics = self._fed_round(self.state, batch, part)
         loss = float(metrics["loss"])
         participants = [int(c) for c in np.nonzero(sel["mask"])[0]]
         client_loss = metrics["client_loss"].cpu().numpy()

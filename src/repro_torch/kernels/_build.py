@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels at first use.
 
 The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
-``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``grouped_reduce.cu`` K6,
-``masked_sum.cu`` K8, ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10,
-``fedavg.cu`` K11 and the shared ``errors.cu``) are compiled for ``sm_90a`` by
+``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``row_quant.cu`` K5a, K5b,
+K12a and K12b, ``grouped_reduce.cu`` K6, ``masked_sum.cu`` K8,
+``flash_attention.cu`` K9, ``ssd_scan.cu`` K10, ``fedavg.cu`` K11, the
+shared ``errors.cu`` and the header ``block_amax.cuh`` that K4/K7 and
+K5a/K12a share) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -28,8 +30,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "quant_reduce.cu", "grouped_reduce.cu",
-           "masked_sum.cu", "flash_attention.cu", "ssd_scan.cu", "fedavg.cu", "errors.cu")
+SOURCES = ("nms.cu", "bucket_reduce.cu", "iou.cu", "quant_reduce.cu", "row_quant.cu",
+           "grouped_reduce.cu", "masked_sum.cu", "flash_attention.cu", "ssd_scan.cu", "fedavg.cu",
+           "errors.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false"]
 
 _lock = threading.Lock()
@@ -55,6 +58,8 @@ def _load_locked() -> ctypes.CDLL:
         "packed_bucket_reduce_launch": [p, p, p, p, p, p, i, ll, i, p],
         "pairwise_iou_launch": [p, p, p, i, i, i, i, p],
         "quant_reduce_launch": [p, p, p, i, ll, i, f, i, u, p],
+        "quantize_rows_launch": [p, p, p, i, ll, i, i, p],
+        "dequantize_rows_launch": [p, p, p, i, i, ll, i, i, p],
         "grouped_reduce_launch": [p, p, p, i, i, ll, p],
         "masked_u32_sum_launch": [p, p, p, i, ll, p],
         "flash_attention_launch": [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), i, i, f, p],

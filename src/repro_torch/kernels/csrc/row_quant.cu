@@ -1,0 +1,205 @@
+// Row-block int8 quantizers: quantize (kernels K5a and K12a) and dequantize
+// (K5b and K12b), for sm_90a.
+//
+// Replaces the Pallas kernels src/repro/kernels/pack.py::quantize_rows (K5a,
+// body _rowquant_kernel) and ::dequantize_rows (K5b, body
+// _rowdequant_kernel), and the legacy block quantizers
+// src/repro/kernels/quant.py::quantize (K12a, body _quant_kernel) and
+// ::dequantize (K12b, body _dequant_kernel). K12a/K12b quantize one flat
+// leaf: they are K5a/K5b at C = 1. The wrappers (kernels/pack.py and
+// kernels/quant.py) validate the operands and allocate the outputs.
+//
+// Semantics: x is a (C, N) f32 row buffer, cut per row into scale blocks of
+// `block` elements (the ragged tail of the last block reads as 0 and is not
+// stored, which is the reference's zero padding). For row c and block b
+//
+//   scale[c, b] = fmaxf(amax_{n in b} |x[c, n]|, 1e-12f) / 127    (IEEE divide)
+//   q[c, n]     = int8(clip(rintf(x[c, n] / scale[c, b]), -127, 127))
+//   out[c, n]   = T(float(q[c, n]) * scale[c, b])                   (dequantize)
+//
+// rintf is half to even (torch.round, jnp.round); T is float32 or bfloat16,
+// one round-to-nearest-even cast (__float2bfloat16_rn). Every step is one
+// IEEE rounding with no FMA to contract (the build passes -fmad=false), so the
+// plain versions kernels/ref.py::quantize_rows / dequantize_rows are bitwise
+// equal, and so is the fused transport K4 (quant_reduce.cu), which computes
+// the same scale and q inside its reduce.
+//
+// Bound: bytes. Quantize reads 4 bytes and writes 1 per element (plus one
+// scale per block), dequantize the reverse; per element a handful of f32
+// operations (an abs and a max, a divide, a round, a clip; a multiply),
+// far below the card's operations-per-byte balance. At the launcher's quant8
+// shape (3, 13,312,864) that is 199.85 MB each way, 0.0597 ms at 3.35 TB/s.
+// Design: quantize runs one CTA per (scale block, row), grid
+// (ceil(N / block), C), so the block's amax is a CTA-wide reduction
+// (block_amax.cuh, shared with K4) over values the threads keep in registers:
+// each element is read once, 16 bytes per thread per load, neighbouring
+// threads on neighbouring addresses, and q is stored four int8 at a time.
+// One thread writes the block's scale. Dequantize is elementwise: one thread
+// per four elements, a 4-byte load of q, its block's scale through the
+// read-only cache, one 16-byte (f32) or 8-byte (bf16) store. Rows that are
+// not aligned for the vector accesses (N % 4 != 0) take a scalar path with
+// the same arithmetic.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "block_amax.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+constexpr int kMaxChunks = 4;  // float4 chunks per thread: block <= 4096
+constexpr int kDequantThreads = 256;
+
+__device__ __forceinline__ signed char quant(float x, float scale) {
+  return static_cast<signed char>(fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f));
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kMaxThreads)
+rowquant_kernel(const float* __restrict__ x, signed char* __restrict__ q,
+                float* __restrict__ scales, long long n, int block, int n_blocks) {
+  __shared__ float slots[kMaxThreads / 32];
+  const long long block_start = static_cast<long long>(blockIdx.x) * block;
+  const float* row = x + static_cast<size_t>(blockIdx.y) * n;
+  signed char* qrow = q + static_cast<size_t>(blockIdx.y) * n;
+  const int span = blockDim.x * 4;  // elements one pass of the CTA covers
+  const int chunks = (block + span - 1) / span;
+  float v[kMaxChunks][4];
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxChunks; ++k) {
+    const int off = k * span + threadIdx.x * 4;  // offset inside the scale block
+    const long long e = block_start + off;
+    if (k < chunks && off < block && kVec4 && e < n) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(row + e));
+      v[k][0] = t.x;
+      v[k][1] = t.y;
+      v[k][2] = t.z;
+      v[k][3] = t.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[k][j] = (!kVec4 && k < chunks && off + j < block && e + j < n) ? __ldg(row + e + j) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) amax = fmaxf(amax, fabsf(v[k][j]));
+  }
+  amax = cta_amax(amax, slots);
+  const float scale = fmaxf(amax, 1e-12f) / 127.0f;
+  if (threadIdx.x == 0) scales[static_cast<size_t>(blockIdx.y) * n_blocks + blockIdx.x] = scale;
+#pragma unroll
+  for (int k = 0; k < kMaxChunks; ++k) {
+    const int off = k * span + threadIdx.x * 4;
+    const long long e = block_start + off;
+    if (k >= chunks || off >= block || e >= n) continue;
+    if (kVec4) {
+      reinterpret_cast<char4*>(qrow + e)[0] =
+          make_char4(quant(v[k][0], scale), quant(v[k][1], scale), quant(v[k][2], scale),
+                     quant(v[k][3], scale));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (off + j < block && e + j < n) qrow[e + j] = quant(v[k][j], scale);
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo, hi;
+  lo.x = __float2bfloat16_rn(a);
+  lo.y = __float2bfloat16_rn(b);
+  hi.x = __float2bfloat16_rn(c);
+  hi.y = __float2bfloat16_rn(d);
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = lo;
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = hi;
+}
+
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+
+template <typename T, bool kVec4>
+__global__ void __launch_bounds__(kDequantThreads)
+rowdequant_kernel(const signed char* __restrict__ q, const float* __restrict__ scales,
+                  T* __restrict__ out, long long n, int block, int n_blocks) {
+  const long long e = 4 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (e >= n) return;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  // block % 4 == 0, so the four elements share one scale block
+  const float s = __ldg(scales + static_cast<size_t>(blockIdx.y) * n_blocks + e / block);
+  if (kVec4) {
+    const char4 t = reinterpret_cast<const char4*>(q + base + e)[0];
+    store4(out + base + e, static_cast<float>(t.x) * s, static_cast<float>(t.y) * s,
+           static_cast<float>(t.z) * s, static_cast<float>(t.w) * s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (e + j < n) store1(out + base + e + j, static_cast<float>(q[base + e + j]) * s);
+  }
+}
+
+template <typename T>
+cudaError_t dequant_launch(const signed char* q, const float* scales, void* out, int n_rows,
+                           long long n, int block, int n_blocks, bool vec4, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((n + 4LL * kDequantThreads - 1) / (4LL * kDequantThreads)),
+                  static_cast<unsigned>(n_rows));
+  T* o = static_cast<T*>(out);
+  if (vec4)
+    rowdequant_kernel<T, true><<<grid, kDequantThreads, 0, stream>>>(q, scales, o, n, block,
+                                                                       n_blocks);
+  else
+    rowdequant_kernel<T, false><<<grid, kDequantThreads, 0, stream>>>(q, scales, o, n, block,
+                                                                        n_blocks);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int n_rows, int block) {
+  return block < 4 || block % 4 || block > kMaxChunks * kMaxThreads * 4 || n_rows < 1 ||
+         n_rows > 65535;
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. Each launches on `stream`, does
+// not synchronise and returns the cudaError_t of the launch. The wrappers
+// guarantee contiguous operands, 1 <= n_rows <= 65535, block % 4 == 0,
+// 4 <= block <= 4096 and n_blocks = ceil(n / block).
+extern "C" int quantize_rows_launch(const float* x, signed char* q, float* scales, int n_rows,
+                                    long long n, int block, int n_blocks, void* stream) {
+  if (n <= 0) return 0;
+  if (bad_shape(n_rows, block)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  int threads = ((block + 3) / 4 + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const dim3 grid(static_cast<unsigned>(n_blocks), static_cast<unsigned>(n_rows));
+  if (vec4)
+    rowquant_kernel<true><<<grid, threads, 0, s>>>(x, q, scales, n, block, n_blocks);
+  else
+    rowquant_kernel<false><<<grid, threads, 0, s>>>(x, q, scales, n, block, n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype 0 = float32, 1 = bfloat16 output.
+extern "C" int dequantize_rows_launch(const signed char* q, const float* scales, void* out,
+                                      int dtype, int n_rows, long long n, int block, int n_blocks,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  if (bad_shape(n_rows, block) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t out_align = dtype == 0 ? 16 : 8;
+  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % out_align == 0;
+  const cudaError_t err =
+      dtype == 0 ? dequant_launch<float>(q, scales, out, n_rows, n, block, n_blocks, vec4, s)
+                 : dequant_launch<__nv_bfloat16>(q, scales, out, n_rows, n, block, n_blocks, vec4, s);
+  return static_cast<int>(err);
+}

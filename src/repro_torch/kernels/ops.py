@@ -1,14 +1,15 @@
 """Kernel dispatch (port of ``repro/kernels/ops.py``): NMS, pairwise IoU, the
-fused transports (quant8 K4, grouped K6, quant4 K7, masked sum K8), flash
-attention (K9) and the Mamba2 SSD chunk scan (K10) with the full SSD around
-it, their trainable forms, and the per-leaf FedAvg of a client-stacked tree
-(K11).
+fused transports (quant8 K4, grouped K6, quant4 K7, masked sum K8), the row
+quantizers (K5a/K5b) and the per-leaf block quantizers of a tree
+(K12a/K12b), flash attention (K9) and the Mamba2 SSD chunk scan (K10) with
+the full SSD around it, their trainable forms, and the per-leaf FedAvg of a
+client-stacked tree (K11).
 
 ``impl="kernel"`` (the default) runs the kernel wrapper, which launches the
 CUDA kernel for a tensor on the card and its plain version for one on the
 CPU. ``impl="ref"`` forces the plain PyTorch version on any device; only
 ``chip_smoke.py`` and the tests pass it, to hold the kernel against it. The
-aggregators select K1, K4, K6, K7 and K8 through ``FedConfig.agg_impl``
+aggregators select K1, K4, K5a, K6, K7 and K8 through ``FedConfig.agg_impl``
 instead (``core.packing``, ``core.aggregators``), and the LM blocks select
 K9 and K10 through ``ArchConfig.attention_impl`` / ``ssm_impl``.
 
@@ -28,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import _build, detect, mask, pack, quant4, ref
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import fedavg as _fedavg
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd_scan as _ssd
@@ -70,6 +72,44 @@ def quant4_reduce(delta: torch.Tensor, weights: torch.Tensor, key: int = 0, *,
         return quant4.quant4_reduce(delta, weights, key, mode=mode, block=block)
     if impl == "ref":
         return ref.quant4_reduce(delta, weights, key, mode, block)
+    raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+
+
+def quantize_rows(x: torch.Tensor, *, block: int = 1024,
+                  impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, N) f32 -> (q int8 (C, N), scales (C, ceil(N/block)))."""
+    if impl == "kernel":
+        return pack.quantize_rows(x, block=block)
+    if impl == "ref":
+        return ref.quantize_rows(x, block)
+    raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+                    block: int = 1024, impl: str = "kernel") -> torch.Tensor:
+    if impl == "kernel":
+        return pack.dequantize_rows(q, scales, dtype=dtype, block=block)
+    if impl == "ref":
+        return ref.dequantize_rows(q, scales, block, dtype)
+    raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+
+
+def quantize(x: torch.Tensor, *, block: int = 1024,
+             impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+    """(N,) f32 -> (q int8 (N,), scales (ceil(N/block),))."""
+    if impl == "kernel":
+        return _quant.quantize(x, block=block)
+    if impl == "ref":
+        return ref.quantize(x, block)
+    raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+               block: int = 1024, impl: str = "kernel") -> torch.Tensor:
+    if impl == "kernel":
+        return _quant.dequantize(q, scales, dtype=dtype, block=block)
+    if impl == "ref":
+        return ref.dequantize(q, scales, block, dtype)
     raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
 
 
@@ -222,3 +262,29 @@ def fedavg_tree(stacked: PyTree, weights: torch.Tensor, mask_per_leaf: PyTree, *
         flat = x.reshape(x.shape[0], -1)
         out[path] = fedavg_masked_mean(flat, weights, masks[path], impl=impl).reshape(x.shape[1:])
     return unflatten(stacked, out)
+
+
+def quantize_tree(tree: PyTree, *, impl: str = "kernel") -> PyTree:
+    """Per-leaf int8 block quantization (``repro/kernels/ops.py::
+    quantize_tree``): each leaf flattened, widened to float32 and quantized
+    by one K12a launch -> a tree of ``{"q", "scales"}`` leaves."""
+    from repro_torch.models.params import flatten_with_paths, unflatten
+
+    out = {}
+    for path, x in flatten_with_paths(tree):
+        q, scales = quantize(x.reshape(-1).float(), impl=impl)
+        out[path] = {"q": q, "scales": scales}
+    return unflatten(tree, out)
+
+
+def dequantize_tree(qtree: PyTree, like: PyTree, *, impl: str = "kernel") -> PyTree:
+    """Inverse of :func:`quantize_tree`: each ``{"q", "scales"}`` leaf
+    decoded by one K12b launch in its ``like`` leaf's dtype and shape."""
+    from repro_torch.models.params import flatten_with_paths, unflatten
+
+    flat = dict(flatten_with_paths(qtree))
+    out = {}
+    for path, x in flatten_with_paths(like):
+        out[path] = dequantize(flat[f"{path}/q"], flat[f"{path}/scales"], dtype=x.dtype,
+                               impl=impl).reshape(x.shape)
+    return unflatten(like, out)

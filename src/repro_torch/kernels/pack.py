@@ -1,5 +1,6 @@
 """Packed-buffer kernels (port of ``repro/kernels/pack.py``): the bucket
-reduce K1, the fused quant8 transport K4 and the grouped reduce K6.
+reduce K1, the fused quant8 transport K4, the row quantizers K5a/K5b and
+the grouped reduce K6.
 
 :func:`packed_bucket_reduce` is the reduction every dense, eq6 and
 static_topn round runs under ``FedConfig.agg_impl="kernel"``
@@ -8,10 +9,11 @@ the hand-written CUDA kernel ``csrc/bucket_reduce.cu``; for a tensor on the
 CPU it runs the plain version ``kernels.ref.packed_bucket_reduce``. A CUDA
 tensor never takes the plain version: the kernel launches or the call
 raises. :func:`quant8_reduce` (``csrc/quant_reduce.cu``) is quant8's one
-launch per round and :func:`grouped_reduce` (``csrc/grouped_reduce.cu``)
-hier's inner reduce, under the same rule. The row quantization kernels
-(``quantize_rows``, ``dequantize_rows``) serve only the sharded quant8
-transport and belong to the slice that shards the client axis.
+launch per round without a client mesh, :func:`quantize_rows`
+(``csrc/row_quant.cu``) its one launch per round with one (the gathered
+int8 transport; :func:`dequantize_rows` is its inverse, which no round
+runs), and :func:`grouped_reduce` (``csrc/grouped_reduce.cu``) hier's inner
+reduce, all under the same rule.
 """
 from __future__ import annotations
 
@@ -100,6 +102,93 @@ def quant8_reduce(delta: torch.Tensor, weights: torch.Tensor, *, block: int = 10
 
 
 quant8_reduce.launches = 0
+
+
+def _check_rows(what: str, x: torch.Tensor, dtype: torch.dtype, block: int) -> None:
+    """Validate a (C, N) row-quantizer operand on the card."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[0] <= 65535:
+        raise ValueError(f"{what}: expected (C, N) with 1 <= C <= 65535, got {tuple(x.shape)}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what} takes {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} takes contiguous tensors")
+    if block < 4 or block % 4 or block > MAX_QUANT_BLOCK:
+        raise ValueError(f"{what}: block={block} must be a multiple of 4 in [4, {MAX_QUANT_BLOCK}]")
+
+
+def launch_quantize_rows(what: str, x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/row_quant.cu``'s quantizer on a (C, N) f32 card
+    tensor -> (q int8 (C, N), scales f32 (C, ceil(N/block))); the callers
+    (K5a here, K12a in ``kernels.quant``) count it."""
+    _check_rows(what, x, torch.float32, block)
+    C, N = x.shape
+    nb = -(-N // block)
+    q = torch.empty((C, N), dtype=torch.int8, device=x.device)
+    scales = torch.empty((C, nb), dtype=torch.float32, device=x.device)
+    _build.launch("quantize_rows_launch", x.device, x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                  C, N, block, nb)
+    return q, scales
+
+
+# the output dtypes of the dequantizer, by the code its C entry takes
+DEQUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch_dequantize_rows(what: str, q: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype,
+                           block: int) -> torch.Tensor:
+    """One launch of ``csrc/row_quant.cu``'s dequantizer on card tensors
+    -> (C, N) ``q * scale`` in ``dtype``; the callers (K5b here, K12b in
+    ``kernels.quant``) count it."""
+    _check_rows(what, q, torch.int8, block)
+    C, N = q.shape
+    nb = -(-N // block)
+    if scales.shape != (C, nb) or scales.dtype != torch.float32:
+        raise ValueError(f"{what}: scales must be ({C}, {nb}) float32, got "
+                         f"{tuple(scales.shape)} {scales.dtype}")
+    if scales.device != q.device or not scales.is_contiguous():
+        raise ValueError(f"{what}: scales must be contiguous and on q's device")
+    out = torch.empty((C, N), dtype=dtype, device=q.device)
+    _build.launch("dequantize_rows_launch", q.device, q.data_ptr(), scales.data_ptr(),
+                  out.data_ptr(), DEQUANT_DTYPES[dtype], C, N, block, nb)
+    return out
+
+
+def check_dequant_dtype(what: str, dtype: torch.dtype) -> None:
+    if dtype not in DEQUANT_DTYPES:
+        raise TypeError(f"{what} writes float32 or bfloat16, not {dtype}")
+
+
+def quantize_rows(x: torch.Tensor, *, block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (C, N) f32 -> (q int8 (C, N), scales f32 (C, ceil(N/block))): one
+    symmetric scale ``max(amax, 1e-12)/127`` per ``block`` elements of each
+    row, ``q = clip(round(x/scale), -127, 127)``. Counts its CUDA launches
+    in ``quantize_rows.launches``."""
+    if x.device.type == "cpu":
+        return ref.quantize_rows(x, block)
+    q, scales = launch_quantize_rows("quantize_rows", x, block)
+    quantize_rows.launches += 1
+    return q, scales
+
+
+quantize_rows.launches = 0
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+                    block: int = 1024) -> torch.Tensor:
+    """q (C, N) int8, scales (C, ceil(N/block)) f32 -> (C, N) ``q * scale``
+    in ``dtype`` (float32 or bfloat16). Counts its CUDA launches in
+    ``dequantize_rows.launches``."""
+    check_dequant_dtype("dequantize_rows", dtype)
+    if q.device.type == "cpu":
+        return ref.dequantize_rows(q, scales, block, dtype)
+    out = launch_dequantize_rows("dequantize_rows", q, scales, dtype, block)
+    dequantize_rows.launches += 1
+    return out
+
+
+dequantize_rows.launches = 0
 
 
 def grouped_reduce(packed: torch.Tensor, wn: torch.Tensor) -> torch.Tensor:

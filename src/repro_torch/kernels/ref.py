@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro/kernels/ref.py::nms_np``, ``pairwise_iou_np``, ``_corners_np`` and
-``packed_bucket_reduce``, of the fused transports K4, K6, K7, K8, and of the
-LM kernels K9 ``flash_attention`` and K10 ``ssd_chunk_scan``, and of the
-per-leaf FedAvg K11 ``fedavg_masked_mean``).
+``packed_bucket_reduce``, of the fused transports K4, K6, K7, K8, of the row
+and block quantizers K5a/K5b and K12a/K12b, of the LM kernels K9
+``flash_attention`` and K10 ``ssd_chunk_scan``, and of the per-leaf FedAvg
+K11 ``fedavg_masked_mean``).
 
 The detection versions are straight transcriptions of the reference's
 NumPy oracles, op for op in float32: every op is a plain IEEE
@@ -141,6 +142,35 @@ def quant8_reduce(delta: torch.Tensor, weights: torch.Tensor, block: int = 1024)
     ``block`` elements, ``q = clip(round(x/scale), -127, 127)``, the clients
     one ordered chain whatever C (``packing.quant_mean``)."""
     return packing.quant_mean(delta, weights, block, 127.0, chain_max=delta.shape[0])
+
+
+def quantize_rows(x: torch.Tensor, block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5a's plain version: x (C, N) f32 -> (q int8 (C, N), scales f32 (C,
+    ceil(N/block))), ``scale = max(amax, 1e-12)/127`` per block (a true
+    division, ``packing.exact_div``), ``q = clip(round(x/scale), -127,
+    127)`` (``packing.quantize_rows_ref``)."""
+    return packing.quantize_rows_ref(x, block)
+
+
+def dequantize_rows(q: torch.Tensor, scales: torch.Tensor, block: int = 1024,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K5b's plain version: (C, N) int8 + (C, ceil(N/block)) scales -> (C,
+    N) ``q * scale`` with one cast to ``dtype``
+    (``packing.dequantize_rows_ref``)."""
+    return packing.dequantize_rows_ref(q, scales, block, dtype)
+
+
+def quantize(x: torch.Tensor, block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12a's plain version: :func:`quantize_rows` of the one row ``x``
+    (N,) -> (q (N,), scales (ceil(N/block),))."""
+    q, scales = quantize_rows(x.reshape(1, -1), block)
+    return q[0], scales[0]
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int = 1024,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K12b's plain version: :func:`dequantize_rows` of the one row ``q``."""
+    return dequantize_rows(q.reshape(1, -1), scales.reshape(1, -1), block, dtype)[0]
 
 
 def quant4_reduce(delta: torch.Tensor, weights: torch.Tensor, key: int = 0,

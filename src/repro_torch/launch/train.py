@@ -12,12 +12,14 @@
       --rounds 2 --agg quant4
   PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
       --rounds 2 --agg hier --clients 4 --group-size 2 --hier-base eq6
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
+      --rounds 3 --agg quant8 --participation compact --clients 3 --max-participants 2
 
 Runs the paper's federated detection workload: FedYOLOv3 over a
 partitioned synthetic scene pool, the Task Scheduler and the Explorer's
 load model choosing participants, the ``--agg`` aggregation through the
 CUDA kernels (``agg_impl="kernel"``: K1 for dense, eq6, static_topn,
-topk_ef and the server optimizers, K4 for quant8, K7 for quant4, K8 for
+topk_ef and the server optimizers, K5a for quant8, K7 for quant4, K8 for
 secure, K6 + the base's kernel for hier), COS checkpoints every 5 rounds with
 ``--store``, global and per-client mAP@0.5 every ``--eval-every`` rounds
 (IoU and NMS kernels). After the last round the global model is published
@@ -33,15 +35,22 @@ forward on the card and their plain versions' gradients, and prints the
 reference's summary JSON. ``--device`` defaults to ``cuda`` and never falls
 back to the CPU.
 
-Every registered aggregator but the fedsgd topology is a ``--agg`` choice.
-``--mode async``, ``--transport socket``, ``--restore``,
-``--replay-schedule`` and compact participation belong to later slices and
-raise.
+As the reference's launcher does, the server runs on a 1 x 1 client mesh
+(:func:`client_mesh`: a ``DeviceMesh`` with dims ``("data", "model")``,
+``client_axis="data"``, on a one-rank process group, NCCL on the card and
+gloo on the host), so ``--agg quant8`` takes the gathered int8 transport
+(K5a, an int8 all-gather, the decode-reduce) and not the fused K4.
+``--participation compact --max-participants K`` trains exactly K clients a
+round. Every registered aggregator but the fedsgd topology is a ``--agg``
+choice (fedsgd is reached through ``FLServer`` / ``build_fed_round``).
+``--mode async``, ``--transport socket``, ``--restore`` and
+``--replay-schedule`` belong to later slices and raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 from typing import Any
@@ -81,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--local-steps", type=int, default=1)
-    ap.add_argument("--agg", default="eq6", choices=list(aggregators.names()))
+    # any registered aggregator (fedsgd is a topology, not a CLI mode here)
+    ap.add_argument("--agg", default="eq6", choices=[n for n in aggregators.names() if n != "fedsgd"])
     ap.add_argument("--server-lr", type=float, default=None,
                     help="fedavgm/fedadam server step (default: 1.0 for fedavgm, 0.02 for fedadam)")
     ap.add_argument("--group-size", type=int, default=0,
@@ -174,6 +184,7 @@ def fed_config(args, cfg) -> FedConfig:
         client_axis="data",
         data_axis=None,
         participation=args.participation,
+        max_participants=budget(args) if args.participation == "compact" else 0,
         agg_impl="kernel",
         # fedadam's adaptive step is about server_lr per coordinate: it needs
         # a small one out of the box
@@ -191,18 +202,55 @@ def fed_config(args, cfg) -> FedConfig:
     )
 
 
+def budget(args) -> int:
+    """The scheduler's per-round budget: ``--max-participants``, else
+    ``clients // 2`` and at least 2."""
+    return args.max_participants or max(2, args.clients // 2)
+
+
+def client_mesh(dev: torch.device):
+    """The reference launcher's 1 x 1 client mesh for ``dev``: a
+    ``DeviceMesh`` with dims ``("data", "model")`` over a one-rank process
+    group. The group is initialised once per process if none exists (gloo
+    for the host, and NCCL beside it where there is a card, so host and
+    card meshes share it; a ``HashStore`` rendezvous, so no port and no
+    network), and the mesh is built once per group and device type."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        nccl = torch.cuda.is_available() and dist.is_nccl_available()
+        dist.init_process_group("cpu:gloo,cuda:nccl" if nccl else "gloo", store=dist.HashStore(),
+                                rank=0, world_size=1)
+    return _client_mesh(torch.device(dev).type, dist.group.WORLD)
+
+
+@functools.cache
+def _client_mesh(kind: str, world):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    config = dist.get_backend_config(world)
+    want = "nccl" if kind == "cuda" else "gloo"
+    if dist.get_world_size(world) != 1 or dict(b.split(":") for b in config.split(",")).get(kind) != want:
+        raise RuntimeError(
+            f"the 1 x 1 client mesh on {kind} needs a one-rank process group with {want} for "
+            f"{kind} tensors; this process already has a {dist.get_world_size(world)}-rank group "
+            f"with backends {config!r}")
+    return init_device_mesh(kind, (1, 1), mesh_dim_names=("data", "model"))
+
+
 def make_server(args, cfg, fed: FedConfig, dev: torch.device, task_id: str) -> FLServer:
-    """The FL server for parsed ``args``: the optimizer, the COS store
-    (checkpoints every 5 rounds), the scheduler's budget (``clients // 2``,
-    at least 2, unless ``--max-participants``) and fairness floor."""
-    budget = args.max_participants or max(2, args.clients // 2)
+    """The FL server for parsed ``args`` on the 1 x 1 client mesh: the
+    optimizer, the COS store (checkpoints every 5 rounds), the scheduler's
+    :func:`budget` and fairness floor."""
     optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
     store = ObjectStore(args.store) if args.store else None
     return FLServer(
         cfg, fed, optimizer, store=store,
         scheduler=TaskScheduler(fed.n_clients, SchedulerConfig(
-            max_participants=budget, fairness_rounds=args.fairness_rounds)),
+            max_participants=budget(args), fairness_rounds=args.fairness_rounds)),
         seed=args.seed, checkpoint_every=5 if store else 0, task_id=task_id, device=dev,
+        mesh=client_mesh(dev),
     )
 
 
@@ -301,3 +349,7 @@ def main(argv: list[str] | None = None) -> dict:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # the 1 x 1 client mesh's one-rank group
+        dist.destroy_process_group()

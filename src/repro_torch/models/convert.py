@@ -14,7 +14,10 @@ comes from the config's family): the reference's ``state["params"]`` is
 already the packed ``(C, N_total)`` buffer in the port's layout, and its
 optimizer moments (client-stacked trees such as ``state["opt"]["mu"]`` or
 adamw's ``"m"`` and ``"v"``) pack into the port's ``(C, N_total)`` moment
-buffers. :func:`agg_state_from_reference`
+buffers; its ``rows`` argument keeps one rank's row block of a sharded
+client axis. :func:`fedsgd_state_from_reference` carries the fedsgd
+topology's one shared tree and its moments into the one packed row.
+:func:`agg_state_from_reference`
 and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
 (``base``, ``global``, ``ef``, ``prev_sums``, the server optimizer's
 ``opt`` moments and step count, hier's state of its base) are flat arrays
@@ -81,24 +84,43 @@ def _spec(cfg):
     return packing.build_pack_spec(cfg, tpl), tpl
 
 
-def state_from_reference(cfg, params, opt: dict, device: str | torch.device = "cpu"):
+def state_from_reference(cfg, params, opt: dict, device: str | torch.device = "cpu",
+                         rows: slice = slice(None)):
     """The reference's flat state -> (packed params (C, N_total), opt dict).
 
     params: ``state["params"]`` as a (C, N_total) array; opt:
     ``state["opt"]`` with each moment a client-stacked tree of (C, *shape)
     arrays (``{"mu": tree}`` for sgd, ``{"m", "v": tree, "t": (C,)}`` for
     adamw, ``{}`` for stateless sgd). Moments pack into (C, N_total)
-    buffers; the step count stays a (C,) tensor."""
+    buffers; the step count stays a (C,) tensor. ``rows`` keeps a block of
+    clients, e.g. a rank's ``packing.packed_pspec`` under a client mesh."""
     from repro_torch.core import packing
 
     spec, _ = _spec(cfg)
-    packed = torch.tensor(np.asarray(params, np.float32), device=device)
+    packed = torch.tensor(np.asarray(params, np.float32)[rows], device=device)
     if packed.shape[1] != spec.n_total:
         raise ValueError(f"params have {packed.shape[1]} columns, the spec {spec.n_total}")
-    as_t = lambda x: torch.tensor(np.asarray(x), device=device)
+    as_t = lambda x: torch.tensor(np.asarray(x)[rows], device=device)
     out = {k: packing.pack(spec, map_tree(as_t, v)) if isinstance(v, (dict, tuple, list))
            else as_t(v) for k, v in opt.items()}
     return packed, out
+
+
+def fedsgd_state_from_reference(cfg, params: PyTree, opt: dict,
+                                device: str | torch.device = "cpu"):
+    """The reference's fedsgd state -> (the shared row (N_total,), opt dict).
+
+    params: the one shared param tree; opt: its optimizer state, each
+    moment a tree of the params' shapes (adamw's ``t`` a scalar). Both pack
+    into one row, the step count becomes a 0-d tensor."""
+    from repro_torch.core import packing
+
+    spec, _ = _spec(cfg)
+    as_row = lambda x: torch.tensor(np.asarray(x)[None], device=device)
+    row = packing.pack(spec, map_tree(as_row, params), torch.float32)[0]
+    out = {k: packing.pack(spec, map_tree(as_row, v))[0] if isinstance(v, (dict, tuple, list))
+           else torch.tensor(np.asarray(v), device=device) for k, v in opt.items()}
+    return row, out
 
 
 def state_to_reference(cfg, packed: torch.Tensor, opt: dict):

@@ -335,9 +335,12 @@ def test_aggregators_match_reference(mode, r, which, mask_kind):
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(state_layout="tree"), dict(aggregation="fedsgd"), dict(participation="compact")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            rounds.make_aggregator(TCFG, _fed("torch", **kw))
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        rounds.make_aggregator(TCFG, _fed("torch", state_layout="tree"))
+    # fedsgd, compact participation and the client mesh are ported
+    # (tests/test_torch_participation.py); a mesh that shards the flat dim is not
+    for kw in (dict(aggregation="fedsgd"), dict(participation="compact")):
+        assert rounds.make_aggregator(TCFG, _fed("torch", **kw)).ctx.fed == _fed("torch", **kw)
     # microbatches are ported (tests/test_torch_lm_train.py); the LM families
     # beyond dense and ssm are not
     with pytest.raises(NotImplementedError, match="slice 7c"):
@@ -347,10 +350,12 @@ def test_unported_configurations_raise():
         rounds.make_aggregator(TCFG, _fed("torch", microbatches=0))
     with pytest.raises(ValueError, match="the port has"):
         rounds.make_aggregator(TCFG, _fed("torch", aggregation="no_such_mode"))
-    with pytest.raises(NotImplementedError, match="slice"):
-        rounds.build_fed_round(TCFG, _fed("torch"), sgd(), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        rounds.participation_input(_fed("torch"), np.ones(C), np.ones(C) / C, idx=np.arange(C))
+    model_axis = SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d])
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        rounds.build_fed_round(TCFG, _fed("torch"), sgd(), mesh=model_axis)
+    # idx rides only under compact participation
+    assert "idx" not in rounds.participation_input(_fed("torch"), np.ones(C), np.ones(C) / C,
+                                                   idx=np.arange(C))
     with pytest.raises(NotImplementedError, match="slice 4"):
         FLServer(TCFG, _fed("torch", mode="async"), sgd(), device="cpu")
 
@@ -475,9 +480,7 @@ def test_launcher_trains_evaluates_checkpoints_and_serves(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--mode", "async"], ["--transport", "socket"],
-                                   ["--restore", "x"], ["--replay-schedule", "x"],
-                                   ["--task", "lm", "--arch", "qwen3-1.7b", "--participation",
-                                    "compact"], ["--participation", "compact"]])
+                                   ["--restore", "x"], ["--replay-schedule", "x"]])
 def test_launcher_paths_of_later_slices_raise(flags):
     with pytest.raises(NotImplementedError, match="slice"):
         train.main(["--device", "cpu", "--rounds", "1", *flags])
