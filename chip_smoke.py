@@ -86,13 +86,21 @@ recorded every launch made; where no trace does, the kernels line says
    the reference's own tolerances): flash attention at the qwen3 prefill's
    (4, 16, 1024, 128) with 8 kv heads, causal, in float32 and bfloat16,
    then windows 64 and 128, causal off, H = Hkv, hd 64, S = 128 and S = 64
-   (one tile); the SSD chunk scan's four outputs at the mamba2 prefill's
-   (B 4, S 1024, H 64, P 64, N 128, chunk 128), the reference test's
-   shapes (chunks 8, 16, 32), the main shape with bfloat16 inputs and 12
-   heads in groups of 8.
-   Kernel ms (CUDA events), device ms (profiler), plain ms, the bound, and
-   for K9 ``scaled_dot_product_attention`` on the same float32 operands as
-   the library yardstick.
+   (half of one 128-row query tile), S = 192 (a ragged second tile) in
+   float32 and bfloat16, windows of 100 and 130 that cross key-tile and
+   query-tile borders, a window without causality; the SSD chunk scan's
+   four outputs at the mamba2 prefill's (B 4, S 1024, H 64, P 64, N 128,
+   chunk 128), the reference test's shapes (chunks 8, 16, 32), the main
+   shape with bfloat16 inputs, 12 heads, chunk 64, 17 heads (a ragged last
+   head group), P = 128 (two 64-column head blocks) and a bfloat16 case
+   with P = 100 and N = 36. First the count of tensor-core instructions
+   (HMMA/HGMMA) in each K9/K10 kernel's SASS, by ``cuobjdump`` (else the
+   ``mma`` instructions of the sources); a kernel with none fails.
+   Kernel ms (CUDA events), device ms (profiler), plain ms, two bounds (the
+   tensor cores' through the 3xTF32 split, and the FP32 units', the bound of
+   the kernels' earlier scalar designs), and for K9
+   ``scaled_dot_product_attention`` on the same float32 operands as the
+   library yardstick.
 9. LM serving at full width through the launcher
    (``repro_torch.launch.serve``): qwen3-1.7b and mamba2-1.3b, random
    float32 weights from seed 0, ``--batch 4 --prompt-len 1024
@@ -169,6 +177,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense tensor cores; a 3xTF32 product costs three
 # f32 ops per evaluated (i, j) pair of the scan (4 for ix, 4 for iy, 2 for
 # inter, 4 for the IoU, 1 compare) and per box for corners and area
 OPS_PER_PAIR, OPS_PER_BOX = 15, 12
@@ -221,11 +230,21 @@ FLASH_CASES = [((4, 16, 8, 1024, 128), True, 0, torch.float32),
                ((2, 8, 8, 512, 128), True, 0, torch.float32),
                ((4, 16, 8, 1024, 64), True, 0, torch.float32),
                ((2, 4, 2, 128, 128), True, 0, torch.float32),
-               ((2, 4, 2, 64, 128), True, 0, torch.float32)]
+               ((2, 4, 2, 64, 128), True, 0, torch.float32),
+               # the edges of the 128-row query tile and the 64-row key tile
+               ((1, 4, 2, 192, 128), True, 0, torch.float32),
+               ((1, 4, 2, 192, 64), True, 0, torch.bfloat16),
+               ((1, 4, 2, 384, 128), True, 100, torch.float32),
+               ((1, 4, 1, 384, 64), True, 130, torch.float32),
+               ((1, 2, 1, 256, 64), False, 96, torch.float32)]
 SSD_CASES = [(4, 1024, 64, 64, 128, 128, torch.float32), (1, 32, 2, 8, 4, 8, torch.float32),
              (2, 64, 3, 16, 8, 16, torch.float32), (1, 128, 1, 64, 16, 32, torch.float32),
              (4, 1024, 64, 64, 128, 128, torch.bfloat16),
-             (4, 4096, 12, 64, 128, 128, torch.float32)]  # 8 heads a CTA, a ragged last group
+             (4, 4096, 12, 64, 128, 128, torch.float32),
+             (2, 1024, 8, 64, 128, 64, torch.float32),  # chunk 64
+             (1, 1024, 17, 64, 128, 128, torch.float32),  # groups of 2 heads, the last of 1
+             (1, 256, 4, 128, 128, 128, torch.float32),  # two 64-column head blocks
+             (1, 256, 3, 100, 36, 64, torch.bfloat16)]
 KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # phase 9: the LM serve path at full width, and the kernel each arch runs
 LM_ARCHS = [("qwen3-1.7b", "flash_attention"), ("mamba2-1.3b", "ssd_chunk_scan")]
@@ -955,11 +974,27 @@ def phase7(dev, card: str) -> dict:
     return main_launches, (x_host, x0_host)
 
 
+def lm_bounds(nbytes: float, products: float, other: float) -> dict:
+    """K9's and K10's two bounds (ms) for ``nbytes`` of HBM traffic,
+    ``products`` operations of f32 products and sums, and ``other`` f32
+    operations (softmax, decay): "tc" with the products on the tensor cores
+    through the 3xTF32 split (three tf32 products each) and the rest on the
+    FP32 units, "fp32" with everything on the FP32 units (the bound of the
+    kernels' earlier scalar designs, kept for comparison).
+    Each is the larger of its operations' time and the bytes' time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = (3 * products / TF32_OPS_PER_S + other / F32_OPS_PER_S) * 1e3
+    t_fp32 = (products + other) / F32_OPS_PER_S * 1e3
+    return {"tc": (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations"),
+            "fp32": (t_bytes, "bytes") if t_bytes >= t_fp32 else (t_fp32, "operations")}
+
+
 def flash_bound_ms(B: int, H: int, Hkv: int, S: int, hd: int, causal: bool, window: int,
-                   esize: int) -> tuple[float, str]:
+                   esize: int) -> dict:
     """K9 reads q, k and v once and writes out; per visible (query, key) pair
-    2 hd operations for q.k, 2 hd for p.v and 3 for the softmax (subtract
-    the max, exp, add to the row sum). Pairs outside the band cost nothing."""
+    2 hd operations for q.k and 2 hd for p.v (the products), and 3 for the
+    softmax (subtract the max, exp, add to the row sum). Pairs outside the
+    band cost nothing."""
     rel = torch.arange(S)[:, None] - torch.arange(S)[None, :]
     vis = torch.ones((S, S), dtype=torch.bool)
     if causal:
@@ -967,21 +1002,49 @@ def flash_bound_ms(B: int, H: int, Hkv: int, S: int, hd: int, causal: bool, wind
     if window:
         vis &= rel < window
     pairs = int(vis.sum()) * B * H
-    return roofline(esize * (2 * B * H * S * hd + 2 * B * Hkv * S * hd), pairs * (4 * hd + 3))
+    return lm_bounds(esize * (2 * B * H * S * hd + 2 * B * Hkv * S * hd), pairs * 4 * hd, pairs * 3)
 
 
-def ssd_bound_ms(B: int, S: int, H: int, P: int, N: int, Q: int, esize: int) -> tuple[float, str]:
+def ssd_bound_ms(B: int, S: int, H: int, P: int, N: int, Q: int, esize: int) -> dict:
     """K10 reads xdt, dA, Bm and Cm once and writes y, states, chunk_decay
     and exp_cum (float32). The least work: C B^T over the causal triangle
     once per (batch, chunk) (B and C have no head axis); per (batch, chunk,
-    head) the triangle's exp, L and G * L (3 per pair) and y (2 P per pair),
-    B times the decay (Q N), the states (2 Q N P) and the cumsum and exps
-    (3 Q)."""
+    head) y (2 P per pair of the triangle) and the states (2 Q N P), the
+    products; and the triangle's exp, L and G * L (3 per pair), B times the
+    decay (Q N) and the cumsum and exps (3 Q)."""
     nc, tri = S // Q, Q * (Q + 1) // 2
-    ops = B * nc * tri * 2 * N + B * nc * H * (tri * (3 + 2 * P) + Q * N + 2 * Q * N * P + 3 * Q)
+    products = B * nc * tri * 2 * N + B * nc * H * (tri * 2 * P + 2 * Q * N * P)
+    other = B * nc * H * (tri * 3 + Q * N + 3 * Q)
     nbytes = (esize * (B * S * H * P + 2 * B * S * N) + 4 * B * S * H
               + 4 * (B * S * H * P + B * nc * H * P * N + B * nc * H + B * S * H))
-    return roofline(nbytes, ops)
+    return lm_bounds(nbytes, products, other)
+
+
+def tensor_core_counts(card: str) -> dict:
+    """Tensor-core instructions (HMMA/HGMMA) in the SASS of every K9 and K10
+    kernel, by compiling each source alone and reading it with cuobjdump;
+    where the toolkit has no cuobjdump, the mma instructions of the
+    sources. Fails if a kernel has none. -> {source: count over its kernels}."""
+    from repro_torch.kernels import _build
+
+    out = {}
+    for src, info in _build.inspect(("flash_attention.cu", "ssd_scan.cu")).items():
+        check(info["rc"] == 0, f"nvcc failed on {src}: {info['ptxas']}")
+        if info["mma"] is None:
+            text = "".join((_build.CSRC / f).read_text() for f in (src, "mma_tf32.cuh"))
+            n = text.count("mma.sync.aligned")
+            check(n > 0, f"{src}: no mma instruction in the source")
+            print(f"phase8 {src}: SASS HMMA/HGMMA not measured (no cuobjdump); "
+                  f"{n} mma.sync instruction(s) in its source  [{card}]", flush=True)
+            out[src] = None
+            continue
+        for name, count in info["mma"].items():
+            check(count > 0, f"{src}: {name} has no tensor-core instruction")
+        kernels = "; ".join(f"{n[:n.find('>(') + 1] or n} {c}".replace("void ", "").replace("<unnamed>::", "")
+                            for n, c in info["mma"].items())
+        print(f"phase8 {src}: SASS HMMA/HGMMA per kernel: {kernels}  [{card}]", flush=True)
+        out[src] = sum(info["mma"].values())
+    return out
 
 
 def phase8(dev, card: str) -> dict:
@@ -992,9 +1055,10 @@ def phase8(dev, card: str) -> dict:
 
     from repro_torch.kernels import ops
 
+    hmma = tensor_core_counts(card)
     g = torch.Generator(device=dev).manual_seed(15)
-    stats = {"flash_attention": {"cases": 0, "max_abs_err": 0.0},
-             "ssd_chunk_scan": {"cases": 0, "max_abs_err": 0.0}}
+    stats = {"flash_attention": {"cases": 0, "max_abs_err": 0.0, "sass_hmma": hmma["flash_attention.cu"]},
+             "ssd_chunk_scan": {"cases": 0, "max_abs_err": 0.0, "sass_hmma": hmma["ssd_scan.cu"]}}
 
     for (B, H, Hkv, S, hd), causal, window, dt in FLASH_CASES:
         q = torch.randn((B, H, S, hd), generator=g, device=dev).to(dt)
@@ -1013,10 +1077,12 @@ def phase8(dev, card: str) -> dict:
         if dt == torch.float32:
             st["max_abs_err"] = max(st["max_abs_err"], err)
         k_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
-        bound, by = flash_bound_ms(B, H, Hkv, S, hd, causal, window, q.element_size())
-        line = f"phase8 {what}: max abs err {err:.3e} (tol {tol}) kernel_ms={k_ms:.4f} bound_ms={bound:.4f} ({by})"
+        bounds = flash_bound_ms(B, H, Hkv, S, hd, causal, window, q.element_size())
+        (bound, by), (bound32, by32) = bounds["tc"], bounds["fp32"]
+        line = (f"phase8 {what}: max abs err {err:.3e} (tol {tol}) kernel_ms={k_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by}, 3xTF32 tensor cores) bound_ms_fp32_units={bound32:.4f} ({by32})")
         if st["cases"] == 1:  # the qwen3 prefill's shape, float32
-            st.update(ms=k_ms, bound_ms=bound, bound_by=by,
+            st.update(ms=k_ms, bound_ms=bound, bound_by=by, bound_ms_fp32_units=bound32,
                       plain_ms=time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), reps=5, warmup=1),
                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                           q, k, v, is_causal=True, enable_gqa=True)))
@@ -1045,12 +1111,13 @@ def phase8(dev, card: str) -> dict:
         st["cases"] += 1
         st["max_abs_err"] = max(st["max_abs_err"], max(errs))
         k_ms = time_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q))
-        bound, by = ssd_bound_ms(B, S, H, P, N, Q, xdt.element_size())
+        bounds = ssd_bound_ms(B, S, H, P, N, Q, xdt.element_size())
+        (bound, by), (bound32, by32) = bounds["tc"], bounds["fp32"]
         line = (f"phase8 {what}: max abs err y/states/decay/exp_cum "
                 f"{' '.join(f'{e:.3e}' for e in errs)} (tol 2e-4) kernel_ms={k_ms:.4f} "
-                f"bound_ms={bound:.4f} ({by})")
+                f"bound_ms={bound:.4f} ({by}, 3xTF32 tensor cores) bound_ms_fp32_units={bound32:.4f} ({by32})")
         if st["cases"] == 1:  # the mamba2 prefill's shape, float32
-            st.update(ms=k_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            st.update(ms=k_ms, bound_ms=bound, bound_by=by, bound_ms_fp32_units=bound32, library_ms=None,
                       plain_ms=time_ms(lambda: ops.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk=Q, impl="ref"),
                                        reps=5, warmup=1))
             st["device_ms"], st["device_ms_from"] = device_ms(
@@ -2062,6 +2129,9 @@ def main() -> None:
                 "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
                 **{k: st.get(k) for k in keys}, **extra}
 
+    def tc_keys(name):  # K9/K10: the FP32 units' bound, the SASS's tensor-core count
+        return {k: k_stats[name][k] for k in ("bound_ms_fp32_units", "sass_hmma")}
+
     k_stats["nms_keep"] = dict(max_abs_err=max_abs_err, ms=nms_ms, device_ms=nms_device_ms,
                                device_ms_from="profiler", plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, cases=n_cases)
@@ -2091,9 +2161,9 @@ def main() -> None:
               k_stats["masked_u32_sum"], main_path=uplink["secure"]),
         entry("flash_attention", "flash_attention.cu", "flash_attention.py:98",
               lm_launches["flash_attention"]["launches"], k_stats["flash_attention"],
-              **lm["flash_attention"]),
+              **lm["flash_attention"], **tc_keys("flash_attention")),
         entry("ssd_chunk_scan", "ssd_scan.cu", "ssd_scan.py:51", lm_launches["ssd_chunk_scan"]["launches"],
-              k_stats["ssd_chunk_scan"], **lm["ssd_chunk_scan"]),
+              k_stats["ssd_chunk_scan"], **lm["ssd_chunk_scan"], **tc_keys("ssd_chunk_scan")),
         entry("fedavg_masked_mean", "fedavg.cu", "fedavg.py:36", demo["launches"],
               k_stats["fedavg_masked_mean"], main_path=demo["main_path"], tree_ms=demo["tree_ms"],
               tree_device_ms=demo["tree_device_ms"], tree_device_ms_from=demo["tree_device_ms_from"]),

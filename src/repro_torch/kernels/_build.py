@@ -4,8 +4,10 @@ The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
 ``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``row_quant.cu`` K5a, K5b,
 K12a and K12b, ``grouped_reduce.cu`` K6, ``masked_sum.cu`` K8,
 ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10, ``fedavg.cu`` K11, the
-shared ``errors.cu`` and the header ``block_amax.cuh`` that K4/K7 and
-K5a/K12a share) are compiled for ``sm_90a`` by
+shared ``errors.cu``, the header ``block_amax.cuh`` that K4/K7 and
+K5a/K12a share and the header ``mma_tf32.cuh`` that K9 and K10 share: the
+3xTF32 split, the tf32 ``mma.sync`` and ``cp.async``) are compiled for
+``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -17,12 +19,19 @@ versions.
 Flags: ``-O3``, ``sm_90a``, and ``-fmad=false`` so no product is contracted
 into an FMA (the bit-for-bit contract with ``kernels/ref.py``); no fast
 math, so division stays IEEE round-to-nearest. K9 and K10, held to their
-plain versions at a tolerance, write their products as explicit ``fmaf``.
+plain versions at a tolerance, run their products on the tensor cores
+through a 3xTF32 split; cuBLAS and cuDNN stay TF32-off (``device.resolve``).
+
+:func:`inspect` compiles sources one by one with ``-Xptxas -v`` and counts
+the tensor-core instructions in their SASS (``scripts/lm_kernels_check.py``
+and ``chip_smoke.py`` phase 8 print both).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
+import subprocess
 import threading
 from pathlib import Path
 
@@ -106,3 +115,52 @@ def forward_only(what: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(f"{what} is a forward-only kernel wrapper and its output has no "
                            f"gradient; train through kernels.ops.flash_attention_trainable or "
                            f"ssd_full_trainable")
+
+
+def inspect(sources: tuple[str, ...]) -> dict[str, dict]:
+    """Compile each of ``sources`` (names under ``csrc/``) alone with the
+    build's flags and ``-Xptxas -v``, all at once, into
+    ``build/torch_ext/inspect/``, and read its SASS with the toolkit's
+    ``cuobjdump``. -> {source: {"rc": nvcc's exit code, "ptxas": its lines
+    on registers, spills and errors, "mma": {kernel: number of HMMA and
+    HGMMA instructions} or None where the toolkit has no cuobjdump}}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tools = Path(CUDA_HOME or "/usr/local/cuda") / "bin"
+    out_dir = BUILD_DIR / "inspect"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {src: subprocess.Popen([str(tools / "nvcc"), *CUDA_FLAGS, "-Xptxas", "-v", "-c",
+                                    str(CSRC / src), "-o", str(out_dir / f"{src}.o")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src in sources}
+    result = {}
+    for src, proc in procs.items():
+        _, err = proc.communicate()
+        lines = []
+        for ln in err.splitlines():
+            head = re.search(r"Function properties for (\S+)", ln)
+            if head:
+                lines.append(_demangle(tools, head.group(1)))
+            elif "registers" in ln or "spill" in ln or "rror" in ln:
+                lines.append(ln.strip())
+        mma = None
+        if proc.returncode == 0 and (tools / "cuobjdump").exists():
+            sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(out_dir / f"{src}.o")],
+                                  capture_output=True, text=True).stdout
+            mma, name = {}, None
+            for ln in sass.splitlines():
+                head = re.search(r"Function : (\S+)", ln)
+                if head:
+                    name = _demangle(tools, head.group(1))
+                    mma[name] = 0
+                elif name is not None and re.search(r"\bHG?MMA\.", ln):
+                    mma[name] += 1
+        result[src] = {"rc": proc.returncode, "ptxas": lines, "mma": mma}
+    return result
+
+
+def _demangle(tools: Path, name: str) -> str:
+    filt = tools / "cu++filt"
+    if not filt.exists():
+        return name
+    return subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip() or name

@@ -19,8 +19,14 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-BLOCK = 64  # query and key rows per tile of the CUDA kernel
+BLOCK = 64  # key rows per tile of the CUDA kernel; S must be a multiple
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (batch, head, position) row of ``t`` starts 16-byte aligned, as
+    the kernel's 16-byte loads and ``cp.async`` copies need."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -52,7 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"got S={S}, hd={hd}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if t.stride(-1) == 1 and _rows_aligned(t)
+               else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     _build.launch("flash_attention_launch", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -46,7 +46,9 @@ def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: to
     dtype = xdt.dtype if xdt.dtype == Bm.dtype == Cm.dtype else torch.float32
     if dtype not in DTYPES:
         raise TypeError(f"ssd_chunk_scan takes float32 or bfloat16 operands, got {dtype}")
+    # contiguous and 16-byte aligned, as the kernel's cp.async copies need
     xdt, Bm, Cm = (t.to(dtype).contiguous() for t in (xdt, Bm, Cm))
+    xdt, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xdt, Bm, Cm))
     dA = dA.float().contiguous()
     nc = S // chunk
     f32 = dict(dtype=torch.float32, device=xdt.device)

@@ -10,6 +10,17 @@ full SSD (kernel plus the inter-chunk recurrence) 2e-4 against both the
 reference's ``ops.ssd_full`` and its plain ``mamba2.ssd_chunked``. The cases
 that run the CUDA kernels themselves against their plain versions need a
 card and skip without one.
+
+The CUDA kernels run their products on the tensor cores through a 3xTF32
+split (``csrc/mma_tf32.cuh``). The precision tests emulate it here: each
+f32 operand a becomes hi = a rounded to tf32 (to nearest, ties away, as
+``cvt.rna.tf32.f32`` rounds: add 0x1000 to the bit pattern, clear the low
+13 bits) and lo = a - hi, read by the tensor core truncated to tf32 (or,
+as a second case, rounded like hi); a.b is summed in f32 as lo.hi' + hi.lo'
++ hi.hi'. The plain K9 and K10 arithmetic on split operands, at full
+hd = 128 and Q = N = 128, must hold 2e-4 against the f32 plain versions and
+the reference's own ``repro.kernels.ref``; single-pass TF32 is recorded
+beside it (``record_property``), not asserted.
 """
 import numpy as np
 import pytest
@@ -18,6 +29,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import mamba2 as jm2
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops, ref
@@ -160,3 +172,101 @@ def test_cuda_ssd_chunk_scan_matches_plain_on_card(B, S, H, P, N, Q):
     assert kssd.ssd_chunk_scan.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+# --- the 3xTF32 precision decision, emulated on the CPU -------------------
+
+def _tf32(a, rounding="rna"):
+    """a (f32) as tf32: rounded to nearest, ties away ("rna": add 0x1000 to
+    the bit pattern, clear the low 13 bits), or truncated ("rz")."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    if rounding == "rna":
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul(a, b, passes, lo_rounding):
+    """a @ b (f32) as the tensor cores compute it: one tf32 pass, or the
+    3xTF32 split lo.hi' + hi.lo' + hi.hi' with f32 sums."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah, lo_rounding), _tf32(b - bh, lo_rounding)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _flash_tc(q, k, v, causal, window, passes, lo_rounding):
+    """K9's arithmetic with its two products on the emulated tensor cores:
+    q scaled by 1/sqrt(hd) when staged, masked scores -1e30, p = exp(s - m)
+    zeroed where masked, out = (p v) / sum(p)."""
+    B, H, S, hd = q.shape
+    group = H // k.shape[1]
+    pos = np.arange(S)
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis &= pos[:, None] >= pos[None, :]
+    if window:
+        vis &= pos[:, None] - pos[None, :] < window
+    out = np.empty_like(q)
+    for b in range(B):
+        for h in range(H):
+            qs = q[b, h] * np.float32(1.0 / np.sqrt(hd))
+            s = np.where(vis, _matmul(qs, k[b, h // group].T, passes, lo_rounding), np.float32(-1e30))
+            p = np.where(vis, np.exp(s - s.max(-1, keepdims=True)), np.float32(0.0))
+            out[b, h] = _matmul(p, v[b, h // group], passes, lo_rounding) / p.sum(-1, keepdims=True)
+    return out
+
+
+def _ssd_tc(xdt, dA, Bm, Cm, Q, passes, lo_rounding):
+    """K10's arithmetic (y_diag, states) with its three products on the
+    emulated tensor cores: G = C B^T, y = (G * L) xdt, states = (xdt * decay)^T B."""
+    B, S, H, P = xdt.shape
+    y = np.empty_like(xdt)
+    states = np.empty((B, S // Q, H, P, Bm.shape[-1]), np.float32)
+    for b in range(B):
+        for c in range(S // Q):
+            rows = slice(c * Q, (c + 1) * Q)
+            G = _matmul(Cm[b, rows], Bm[b, rows].T, passes, lo_rounding)
+            for h in range(H):
+                cum = np.cumsum(dA[b, rows, h], dtype=np.float32)
+                L = np.where(np.tri(Q, dtype=bool), np.exp(cum[:, None] - cum[None, :]), np.float32(0))
+                x = xdt[b, rows, h]
+                y[b, rows, h] = _matmul(G * L, x, passes, lo_rounding)
+                dec = np.exp(cum[-1] - cum)
+                states[b, c, h] = _matmul((x * dec[:, None]).T, Bm[b, rows], passes, lo_rounding)
+    return y, states
+
+
+@pytest.mark.parametrize("lo_rounding", ["rz", "rna"])
+def test_flash_attention_3xtf32_split_holds_the_f32_tolerance(lo_rounding, record_property):
+    q, k, v = _flash_inputs((1, 2, 1, 256, 128), "float32", seed=3)
+    want = ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), True, 0).numpy()
+    want_jax = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v))))
+    got = _flash_tc(q, k, v, True, 0, 3, lo_rounding)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, want_jax, rtol=2e-4, atol=2e-4)
+    one = _flash_tc(q, k, v, True, 0, 1, lo_rounding)
+    record_property("max_abs_err_3xtf32", float(np.abs(got - want).max()))
+    record_property("max_abs_err_tf32_single_pass", float(np.abs(one - want).max()))
+
+
+@pytest.mark.parametrize("lo_rounding", ["rz", "rna"])
+def test_ssd_chunk_scan_3xtf32_split_holds_the_f32_tolerance(lo_rounding, record_property):
+    B, S, H, P, N, Q = 1, 256, 2, 64, 128, 128
+    rng = np.random.default_rng(7)
+    xdt, dA = _arr(rng, (B, S, H, P), 0.1), -np.abs(_arr(rng, (B, S, H), 0.1))
+    Bm, Cm = _arr(rng, (B, S, N)), _arr(rng, (B, S, N))
+    want = ref.ssd_chunk_scan(*(torch.from_numpy(a) for a in (xdt, dA, Bm, Cm)), Q)
+    got = _ssd_tc(xdt, dA, Bm, Cm, Q, 3, lo_rounding)
+    for g, w in zip(got, want[:2]):
+        np.testing.assert_allclose(g, w.numpy(), rtol=2e-4, atol=2e-4)
+    for c in range(S // Q):
+        rows = slice(c * Q, (c + 1) * Q)
+        y_j, st_j, _ = jref.ssd_chunk(*(jnp.asarray(a[0, rows]) for a in (xdt, dA, Bm, Cm)))
+        np.testing.assert_allclose(got[0][0, rows], np.asarray(y_j), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got[1][0, c], np.asarray(st_j), rtol=2e-4, atol=2e-4)
+    one = _ssd_tc(xdt, dA, Bm, Cm, Q, 1, lo_rounding)
+    for name, g, o, w in zip(("y", "states"), got, one, want[:2]):
+        record_property(f"{name}_max_abs_err_3xtf32", float(np.abs(g - w.numpy()).max()))
+        record_property(f"{name}_max_abs_err_tf32_single_pass", float(np.abs(o - w.numpy()).max()))
