@@ -61,9 +61,13 @@ recorded every launch made; where no trace does, the kernels line says
    13,312,864) with G = 2, the masked sum (K8) at secure's padded (3,
    13,313,024) with participation [1, 0, 1]; and ragged cases: N not a
    multiple of 1024 or of 4, C above 8, C = 1, partial and empty
-   participation, rows at 0 and near 2^32. Kernel ms (CUDA events), device
-   ms (profiler), plain ms, the bound, and for K6 ``torch.bmm`` on the same
-   operands as the library yardstick.
+   participation, rows at 0 and near 2^32; for K4/K7 also the whole-tile
+   kernel's edges (C = 17, N one whole persistent grid stride, a partial
+   last stride), blocks 4 and 4096 at C = 1, rows 4 bytes off a 16-byte
+   boundary, and rows whose values span 2^-130 to 2^125 with ties. Kernel
+   ms (CUDA events), device ms (profiler), plain ms, the bound, for K4/K7
+   also device ms with the L2 flushed before each call, and for K6
+   ``torch.bmm`` on the same operands as the library yardstick.
 7. The uplink modes at full width. (a) One realistic buffer on the card
    (the round-0 dispatch plus one local sgd step per client, 4 clients,
    img 64): ``aggregate`` on the card (kernels) equals the same call on the
@@ -199,7 +203,17 @@ IOU_SHAPES = [(12, 64, 3), (1, 1, 1), (8, 128, 128), (2, 1000, 1000), (4, 300, 7
 TRAIN_ROUNDS, TRAIN_EVAL_EVERY, TRAIN_CLIENTS, TRAIN_BATCH = 10, 5, 3, 8
 # phase 6: ragged (C, N, block) cases of K4/K7, (C, G, N) of K6, (C, N,
 # participation) of K8 beside the main path's shapes
-QUANT_RAGGED = [(9, 5001, 1024), (1, 77, 64), (6, 2500, 256), (2, 4096 * 3 + 8, 4096), (3, 1030, 1024)]
+QUANT_RAGGED = [(9, 5001, 1024), (1, 77, 64), (6, 2500, 256), (2, 4096 * 3 + 8, 4096), (3, 1030, 1024),
+                # the whole-tile kernel's edges (block 1024, N % 4 == 0): C = 17; the
+                # generic kernel's smallest and largest block at C = 1. Phase 6 adds
+                # N one whole persistent grid stride long and one with a partial
+                # last stride and block, and rows 4 bytes off a 16-byte boundary
+                (17, 5000, 1024), (1, 5000, 4), (1, 5003, 4096)]
+# (C, N, block) of the rows phase 6 starts 4 bytes into a buffer (the scalar path)
+QUANT_UNALIGNED = [(3, 5000, 1024), (2, 4096 * 3, 4096)]
+# (C, N, block) of rows whose values span many binades (phase 6's ``wide``):
+# the whole-tile kernel's division in and out of the range it runs fast
+QUANT_WIDE = [(3, 65536 + 12, 1024), (2, 1 << 20, 1024), (3, 5001, 1024)]
 QUANT4_KEYS = [("nearest", 0), ("stochastic", 12345), ("stochastic", 2 ** 32 - 1)]
 GROUPED_RAGGED = [(32, 8, 2101), (9, 3, 77), (2, 1, 1000), (4, 4, 1003), (12, 2, 4099)]
 MASKED_RAGGED = [(9, 5003, [1] * 9), (1, 64, [1]), (3, 10, [0, 0, 0]), (5, 4096, [0, 1, 1, 0, 1])]
@@ -677,6 +691,18 @@ def profile_round(fn, card: str) -> None:
           + "; ".join(f"{k} {v:.3f} ms" for k, v in by_family.items()) + f"  [{card}]", flush=True)
 
 
+def flushed_device_ms(fn, kernel: str, flush_mb: int = 128) -> tuple[float, str]:
+    """:func:`device_ms` of ``fn`` with a ``flush_mb`` MB write before each
+    call, which evicts the 50 MB L2: the kernel's device time on a cold L2."""
+    junk = torch.empty(flush_mb << 18, device="cuda")
+
+    def flushed():
+        junk.zero_()
+        return fn()
+
+    return device_ms(flushed, kernel)
+
+
 def quant_bound_ms(C: int, N: int) -> tuple[float, str]:
     """K4/K7 read the (C, N) delta and (C,) weights once and write (N,); per
     element and client about 9 f32 operations (abs, max, divide, round or
@@ -705,6 +731,7 @@ def phase6(dev, card: str) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core import packing
     from repro_torch.kernels import ops
+    from repro_torch.kernels import pack as kpack
     from repro_torch.models import yolov3
 
     cfg = get_arch("fedyolov3")
@@ -718,6 +745,24 @@ def phase6(dev, card: str) -> dict:
         x[0, :64] *= 1e-30
         return x, torch.rand(C, generator=g, device=dev)
 
+    def wide(C, n):
+        """Rows whose 1024-blocks have an amax of 1.5 * 2^E, E uniform in
+        [-60, 125) (so scales above 2^100 too), and elements 0-70 binades
+        below it (some below 2^-90, some subnormal), exact zeros, and
+        elements at half steps k + 1/2 of the block's scale for Q = 127 and
+        Q = 7 (quotients within an ulp of a tie)."""
+        nb = -(-n // 1024)
+        top = torch.randint(-60, 125, (C, nb, 1), generator=g, device=dev).float()
+        x = torch.exp2(top - 70 * torch.rand((C, nb, 1024), generator=g, device=dev))
+        x = torch.where(torch.rand(x.shape, generator=g, device=dev) < 0.5, -x, x)
+        amax = 1.5 * torch.exp2(top[..., 0])
+        x[..., 0] = amax
+        k = torch.randint(-7, 7, (C, nb, 16), generator=g, device=dev).float() + 0.5
+        x[..., 1:17] = k * packing.exact_div(amax, 7.0)[..., None]
+        x[..., 17:33] = (k * 18) * packing.exact_div(amax, 127.0)[..., None]
+        x[..., 33::97] = 0.0
+        return x.reshape(C, -1)[:, :n].contiguous(), torch.rand(C, generator=g, device=dev)
+
     stats = {}
 
     def hold(name, kern, plain, what):
@@ -728,7 +773,7 @@ def phase6(dev, card: str) -> dict:
         st["cases"] += 1
         st["max_abs_err"] = max(st["max_abs_err"], float((k.double() - p.double()).abs().max()))
 
-    def measure(name, kern, plain, bound, kernel_name, library=None):
+    def measure(name, kern, plain, bound, kernel_name, library=None, flushed=False):
         st = stats[name]
         st["ms"] = time_ms(kern)
         st["plain_ms"] = time_ms(plain, reps=5, warmup=1)
@@ -736,15 +781,29 @@ def phase6(dev, card: str) -> dict:
         st["bound_ms"], st["bound_by"] = bound
         st["library_ms"] = time_ms(library) if library else None
         lib = "" if library is None else f" library_ms={st['library_ms']:.4f}"
+        if flushed:
+            st["flushed_l2_device_ms"], src = flushed_device_ms(kern, kernel_name)
+            lib += f" flushed_l2_device_ms={st['flushed_l2_device_ms']} ({src})"
         print(f"phase6 {name} main path: kernel_ms={st['ms']:.4f} device_ms={st['device_ms']} "
               f"({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} "
               f"({st['bound_by']}){lib}; "
               f"{st['cases']} cases bitwise-equal  [{card}]", flush=True)
 
-    # -- K4 and K7: the quant8 / quant4 round's (3, N), then ragged cases
-    for C, n, block in [(3, N, 1024), *QUANT_RAGGED]:
-        x, w = delta(C, n)
-        what = f"C={C} N={n} block={block}"
+    # -- K4 and K7: the quant8 / quant4 round's (3, N), then ragged cases, the
+    # whole-tile kernel's grid-stride edges, and rows off a 16-byte boundary
+    stride_n = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_BLOCK)
+    edges = [(3, stride_n, 1024), (3, stride_n + 100 * 1024 + 516, 1024)]
+    for C, n, block, off in [(3, N, 1024, 0), *[(*case, 0) for case in QUANT_RAGGED + edges],
+                             *[(*case, 1) for case in QUANT_UNALIGNED],
+                             *[(*case, -1) for case in QUANT_WIDE]]:
+        x, w = wide(C, n) if off < 0 else delta(C, n)
+        if off > 0:  # the same rows, starting one float into a buffer
+            buf = torch.empty(C * n + off, device=dev)
+            x = buf[off:].view(C, n).copy_(x)
+            check(x.is_contiguous() and x.data_ptr() % 16, "QUANT_UNALIGNED rows are not off 16 bytes")
+        what = (f"C={C} N={n} block={block}" + (f" rows {4 * off} bytes off 16" if off > 0 else "")
+                + (" wide" if off < 0 else ""))
         hold("quant8_reduce", lambda: ops.quant8_reduce(x, w, block=block),
              lambda: ops.quant8_reduce(x, w, block=block, impl="ref"), what)
         for mode, key in QUANT4_KEYS:
@@ -755,13 +814,19 @@ def phase6(dev, card: str) -> dict:
             main_x, main_w = x, w
     measure("quant8_reduce", lambda: ops.quant8_reduce(main_x, main_w),
             lambda: ops.quant8_reduce(main_x, main_w, impl="ref"), quant_bound_ms(3, N),
-            "quant_reduce_kernel")
-    k7_nearest = time_ms(lambda: ops.quant4_reduce(main_x, main_w, 0, mode="nearest"))
+            "quant_reduce_tile_kernel", flushed=True)
+
+    def k7_nearest():
+        return ops.quant4_reduce(main_x, main_w, 0, mode="nearest")
+
+    stats["quant4_reduce"]["nearest_ms"] = time_ms(k7_nearest)
+    stats["quant4_reduce"]["nearest_device_ms"] = device_ms(k7_nearest, "quant_reduce_tile_kernel")[0]
     measure("quant4_reduce", lambda: ops.quant4_reduce(main_x, main_w, 12345, mode="stochastic"),
             lambda: ops.quant4_reduce(main_x, main_w, 12345, mode="stochastic", impl="ref"),
-            quant_bound_ms(3, N), "quant_reduce_kernel")
-    print(f"phase6 quant4_reduce nearest at the main path: kernel_ms={k7_nearest:.4f}  [{card}]",
-          flush=True)
+            quant_bound_ms(3, N), "quant_reduce_tile_kernel", flushed=True)
+    print(f"phase6 quant4_reduce nearest at the main path: kernel_ms="
+          f"{stats['quant4_reduce']['nearest_ms']:.4f} device_ms="
+          f"{stats['quant4_reduce']['nearest_device_ms']}  [{card}]", flush=True)
 
     # -- K6: hier's (4, N) with G = 2, then ragged cases
     for C, G, n in [(4, 2, N), *GROUPED_RAGGED]:
@@ -2152,11 +2217,14 @@ def main() -> None:
               k_stats["pairwise_iou"]),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],
               k_stats["quant8_reduce"], main_path=f"FLServer quant8 without a client mesh, "
-              f"{uplink_launches['quant8_meshless_rounds']} rounds"),
+              f"{uplink_launches['quant8_meshless_rounds']} rounds",
+              flushed_l2_device_ms=k_stats["quant8_reduce"]["flushed_l2_device_ms"]),
         entry("grouped_reduce", "grouped_reduce.cu", "pack.py:342", uplink_launches["grouped_reduce"],
               k_stats["grouped_reduce"], main_path=uplink["hier"]),
         entry("quant4_reduce", "quant_reduce.cu", "quant4.py:101", uplink_launches["quant4_reduce"],
-              k_stats["quant4_reduce"], main_path=uplink["quant4"]),
+              k_stats["quant4_reduce"], main_path=uplink["quant4"],
+              **{k: k_stats["quant4_reduce"][k]
+                 for k in ("flushed_l2_device_ms", "nearest_ms", "nearest_device_ms")}),
         entry("masked_u32_sum", "masked_sum.cu", "mask.py:57", uplink_launches["masked_u32_sum"],
               k_stats["masked_u32_sum"], main_path=uplink["secure"]),
         entry("flash_attention", "flash_attention.cu", "flash_attention.py:98",

@@ -67,6 +67,7 @@ def _load_locked() -> ctypes.CDLL:
         "packed_bucket_reduce_launch": [p, p, p, p, p, p, i, ll, i, p],
         "pairwise_iou_launch": [p, p, p, i, i, i, i, p],
         "quant_reduce_launch": [p, p, p, i, ll, i, f, i, u, p],
+        "quant_reduce_tile_residency": [i],
         "quantize_rows_launch": [p, p, p, i, ll, i, i, p],
         "dequantize_rows_launch": [p, p, p, i, i, ll, i, i, p],
         "grouped_reduce_launch": [p, p, p, i, i, ll, p],

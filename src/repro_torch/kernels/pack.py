@@ -65,8 +65,12 @@ def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: 
 packed_bucket_reduce.launches = 0
 
 
-# the CUDA kernel gives each thread at most 4 float4 chunks of a scale block
+# the generic CUDA kernel gives each thread at most 4 float4 chunks of a scale block
 MAX_QUANT_BLOCK = 4096
+# csrc/quant_reduce.cu's whole-tile kernel (block 1024, N % 4 == 0, 16-byte
+# aligned rows): one warp per scale block at a time, 4 CTAs of 4 warps per
+# SM, so one pass of its persistent grid covers SMs x 16 scale blocks
+QUANT_TILE_BLOCK, QUANT_TILE_WARPS_PER_SM = 1024, 16
 
 
 def check_quant_operands(what: str, delta: torch.Tensor, weights: torch.Tensor, block: int) -> None:

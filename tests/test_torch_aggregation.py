@@ -97,22 +97,47 @@ def test_fmix32_round_key_and_counter_uniform_match_oracles_near_2_32():
 
 # ------------------------------ K4 ------------------------------------------
 
-@pytest.mark.parametrize("C,N,block", [(6, 2500, 256), (3, 5000, 1024), (2, 77, 64)])
+def _hold_pallas(ours, pallas, oracle):
+    """The port against the reference's Pallas kernel in interpret mode at its
+    rtol 1e-5 / atol 1e-6, except where that kernel misses the reference's
+    own oracle (``oracle``, which the caller holds the port to exactly) at
+    the same tolerance. Jitted on the CPU, XLA computes one of the kernel's
+    divisions as a multiply by the reciprocal, 1 ulp off, which flips an
+    x/scale within an ulp of a half step (measured: one element of
+    2,265,604 at C = 3, x/s = -4.5000005). At most one element in 10^5 may
+    be such a flip, so none in a row shorter than 100,000."""
+    pallas = np.asarray(pallas)
+    flips = ~np.isclose(pallas, oracle, rtol=1e-5, atol=1e-6)
+    assert flips.sum() <= ours.size // 100_000, int(flips.sum())
+    np.testing.assert_allclose(ours[~flips], pallas[~flips], rtol=1e-5, atol=1e-6)
+
+
+# (C, N, block) edges of the card kernel's tiling (csrc/quant_reduce.cu): C = 17,
+# N one whole persistent grid stride on an H100 (132 SMs x 16 warps x 1024),
+# N with a partial last stride and a partial last block, blocks 4 and 4096
+# at C = 1 (the generic kernel)
+TILE_STRIDE_N = 132 * kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_BLOCK
+QUANT_EDGES = [(17, 5000, 1024), (3, TILE_STRIDE_N, 1024), (3, TILE_STRIDE_N + 100 * 1024 + 516, 1024),
+               (1, 5000, 4), (1, 5003, 4096)]
+
+
+@pytest.mark.parametrize("C,N,block", [(6, 2500, 256), (3, 5000, 1024), (2, 77, 64), *QUANT_EDGES])
 def test_quant8_reduce_plain_version_matches_reference(C, N, block):
     x, w = _delta(C, N, N)
     before = kpack.quant8_reduce.launches
     ours = kpack.quant8_reduce(t(x), t(w), block=block)
     assert kpack.quant8_reduce.launches == before  # the CPU takes the plain version
-    assert same_bits(ours.numpy(), np.asarray(jpacking.quant8_mean_ref(jnp.asarray(x), jnp.asarray(w), block)))
+    twin = np.asarray(jpacking.quant8_mean_ref(jnp.asarray(x), jnp.asarray(w), block))
+    assert same_bits(ours.numpy(), twin)
     assert same_bits(packing.quant8_mean_ref(t(x), t(w), block).numpy(), ours.numpy())
     pallas = jpack.quant8_reduce(jnp.asarray(x), jnp.asarray(w), block=block, interpret=True)
-    np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), rtol=1e-5, atol=1e-6)
+    _hold_pallas(ours.numpy(), pallas, twin)
 
 
 # ------------------------------ K7 ------------------------------------------
 
 @pytest.mark.parametrize("mode", ["nearest", "stochastic"])
-@pytest.mark.parametrize("C,N,block", [(6, 2500, 256), (3, 5000, 1024), (2, 77, 64)])
+@pytest.mark.parametrize("C,N,block", [(6, 2500, 256), (3, 5000, 1024), (2, 77, 64), *QUANT_EDGES])
 def test_quant4_reduce_plain_version_matches_reference(C, N, block, mode):
     x, w = _delta(C, N, N + 1)
     key = int(jref.round_key_np(11, 2))
@@ -124,7 +149,7 @@ def test_quant4_reduce_plain_version_matches_reference(C, N, block, mode):
     assert same_bits(packing.quant4_mean_ref(t(x), t(w), block, key=key, mode=mode).numpy(), ours)
     pallas = jquant4.quant4_reduce(jnp.asarray(x), jnp.asarray(w), jnp.uint32(key), mode=mode,
                                    block=block, interpret=True)
-    np.testing.assert_allclose(ours, np.asarray(pallas), rtol=1e-5, atol=1e-6)
+    _hold_pallas(ours, pallas, oracle)
     # the dequantized rows a client uploads: quant4_blocks_np -> dequant4_blocks_np
     # (through int8, so its zeros are +0.0), and the jnp twin bit for bit
     rows = packing.quant4_dequant_rows_ref(t(x), block, key=key, mode=mode).numpy()
@@ -214,24 +239,38 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_quant8_reduce_cuda_kernel_equals_plain_version_on_card():
-    dev = _card()
-    for C, N, block in [(3, 13_312_864, 1024), (6, 2500, 256), (9, 5001, 1024), (1, 77, 64)]:
-        x, w = (t(a).to(dev) for a in _delta(C, N, N))
-        assert torch.equal(ops.quant8_reduce(x, w, block=block).view(torch.int32),
-                           ops.quant8_reduce(x, w, block=block, impl="ref").view(torch.int32))
+# the card cases: the main path's shape, ragged ones, the tiling's edges, and
+# rows 4 bytes off a 16-byte boundary (the generic kernel's scalar path at
+# block 1024, which the whole-tile kernel takes on aligned rows)
+CARD_QUANT_CASES = [(3, 13_312_864, 1024, 0), (6, 2500, 256, 0), (9, 5001, 1024, 0), (1, 77, 64, 0),
+                    *[(C, N, block, 0) for C, N, block in QUANT_EDGES], (3, 5000, 1024, 1)]
+
+
+def _card_delta(C, N, offset, dev):
+    """_delta on the card, its rows starting ``offset`` floats into a buffer."""
+    x, w = _delta(C, N, N)
+    buf = torch.empty(C * N + offset, device=dev)
+    xd = buf[offset:].view(C, N)
+    xd.copy_(t(x))
+    return xd, t(w).to(dev)
 
 
 @pytest.mark.cuda
-def test_quant4_reduce_cuda_kernel_equals_plain_version_on_card():
-    dev = _card()
-    for C, N, block in [(3, 13_312_864, 1024), (6, 2500, 256), (9, 5001, 1024), (1, 77, 64)]:
-        x, w = (t(a).to(dev) for a in _delta(C, N, N))
-        for mode, key in (("nearest", 0), ("stochastic", 12345), ("stochastic", 2 ** 32 - 1)):
-            k = ops.quant4_reduce(x, w, key, mode=mode, block=block)
-            p = ops.quant4_reduce(x, w, key, mode=mode, block=block, impl="ref")
-            assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (C, N, mode, key)
+@pytest.mark.parametrize("C,N,block,offset", CARD_QUANT_CASES)
+def test_quant8_reduce_cuda_kernel_equals_plain_version_on_card(C, N, block, offset):
+    x, w = _card_delta(C, N, offset, _card())
+    assert torch.equal(ops.quant8_reduce(x, w, block=block).view(torch.int32),
+                       ops.quant8_reduce(x, w, block=block, impl="ref").view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,N,block,offset", CARD_QUANT_CASES)
+def test_quant4_reduce_cuda_kernel_equals_plain_version_on_card(C, N, block, offset):
+    x, w = _card_delta(C, N, offset, _card())
+    for mode, key in (("nearest", 0), ("stochastic", 12345), ("stochastic", 2 ** 32 - 1)):
+        k = ops.quant4_reduce(x, w, key, mode=mode, block=block)
+        p = ops.quant4_reduce(x, w, key, mode=mode, block=block, impl="ref")
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (C, N, mode, key)
 
 
 @pytest.mark.cuda
