@@ -38,7 +38,8 @@ recorded every launch made; where no trace does, the kernels line says
    IoU at (B, N, M) in (12, 64, 3), (1, 1, 1), (8, 128, 128), (2, 1000,
    1000), (4, 300, 7), IoU and GIoU, random and degenerate boxes. Median
    kernel ms over 20 launches (CUDA events), device ms (profiler), plain
-   ms, and the bound.
+   ms, and the bound. Then the card's launch floor, the device time of a
+   one-element kernel: the real bound of the launch-bound K2 and K3.
 5. Federated training at full width. (a) One masked eq6 round on the card
    and the same round on the host (``device="cpu"``) from one initial
    state and one batch (img 64, 3 clients, batch 2, sgd lr 1e-3): round
@@ -140,12 +141,19 @@ recorded every launch made; where no trace does, the kernels line says
 11. The row and block quantizers, compact participation and fedsgd. (a)
    K5a/K5b against their plain versions, bitwise (tolerance: none), at the
    quant8 round's (3, 13,312,864) with block 1024, at N off the block and
-   off 4, C = 1 and 9, blocks 64, 128 and 4096, an all-zero block (the
+   off 4, C = 1, 9 and 17, blocks 64, 128 and 4096, an all-zero block (the
    1e-12 floor), rows whose x/s sits on .5 ties (half to even) and at
-   +-127 s, float32 and bfloat16 outputs; K12a/K12b through
-   ``ops.quantize_tree`` / ``dequantize_tree`` over fedyolov3's whole tree,
-   one launch per leaf, every leaf bitwise. Kernel ms (CUDA events), device
-   ms (profiler), plain ms and the bound. (b) quant8 ``aggregate`` on phase
+   +-127 s (blocks 256 and 1024), the whole-tile kernel's edges (C = 17,
+   the smallest launch it takes and one unit less, N one whole persistent
+   grid stride, a partial last stride and block), rows 4
+   bytes off a 16-byte boundary (the generic kernel) and rows whose values
+   span 2^-130 to 2^125 with ties, float32 and bfloat16 outputs; K12a on
+   row 0 of every case; K12a/K12b through ``ops.quantize_tree`` /
+   ``dequantize_tree`` over fedyolov3's whole tree, one launch per leaf,
+   every leaf bitwise. Kernel ms (CUDA events), device ms (profiler: K5a
+   by its whole-tile kernel's name, the tree by every quantize launch, both
+   required to come from a full trace), for K5a also with the L2 flushed
+   before each call, plain ms and the bound. (b) quant8 ``aggregate`` on phase
    7a's buffer with a client masked out: the launcher's 1 x 1 mesh on a
    1-rank NCCL group (K5a, the int8 and scale all-gathers, the
    decode-reduce) equals meshless K4 and the host's plain path bitwise;
@@ -271,9 +279,13 @@ GRAD_SEQ, GRAD_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1024, 1e-4, 5e-3, 5e-4
 LM_TRAIN_CLIENTS, LM_TRAIN_ROUNDS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 3, 1, 1024
 LM_TRAIN_PEAK_GIB = 75.0
 # phase 11: ragged (C, N, block) cases of K5a/K5b beside the main path's (3,
-# N, 1024) and the ties rows; the compact launcher runs; fedsgd at full width
+# N, 1024) and the ties rows (C = 17 at 680 units is the whole-tile kernel's;
+# phase 11a adds the smallest launch that kernel takes and one unit less,
+# N one whole persistent grid stride, a partial last stride and block,
+# QUANT_UNALIGNED's rows 4 bytes off 16 and QUANT_WIDE's); the compact
+# launcher runs; fedsgd at full width
 ROWQ_RAGGED = [(9, 5001, 1024), (1, 4097, 1024), (5, 3333, 128), (2, 4096 * 3 + 8, 4096),
-               (3, 1030, 1024), (1, 77, 64)]
+               (3, 1030, 1024), (1, 77, 64), (17, 40_000, 1024)]
 COMPACT_ROUNDS, COMPACT_BUDGET = 3, 2
 FEDSGD_ROUNDS, FEDSGD_PEAK_GIB = 3, 75.0
 
@@ -406,6 +418,14 @@ def device_ms(fn, kernel: str, reps: int = 5, launches: int = 1) -> tuple[float,
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, "events"
+
+
+def launch_floor_ms() -> tuple[float, str]:
+    """The card's launch floor: the device time of a one-element kernel (a
+    multiply of one f32 in place), by :func:`device_ms`. No kernel's device
+    time can fall below it, whatever its bytes and operations."""
+    one = torch.ones(1, device="cuda")
+    return device_ms(lambda: one.mul_(1.0), "MulFunctor", reps=20)
 
 
 def roofline(nbytes: float, ops: float) -> tuple[float, str]:
@@ -725,13 +745,51 @@ def masked_bound_ms(part: list[float], N: int) -> tuple[float, str]:
     return roofline(4 * (active * N + len(part) + N), active * N)
 
 
+def wide_rows(C: int, n: int, g: torch.Generator, dev) -> torch.Tensor:
+    """(C, n) f32 rows whose 1024-blocks have an amax of 1.5 * 2^E, E uniform
+    in [-60, 125) (so scales above 2^100 too), and elements 0-70 binades
+    below it (some below 2^-90, some subnormal), exact zeros, and elements
+    at half steps k + 1/2 of the block's scale for Q = 127 and Q = 7
+    (quotients within an ulp of a tie): the whole-tile kernels' division in
+    and out of the range it runs fast."""
+    from repro_torch.core import packing
+
+    nb = -(-n // 1024)
+    top = torch.randint(-60, 125, (C, nb, 1), generator=g, device=dev).float()
+    x = torch.exp2(top - 70 * torch.rand((C, nb, 1024), generator=g, device=dev))
+    x = torch.where(torch.rand(x.shape, generator=g, device=dev) < 0.5, -x, x)
+    amax = 1.5 * torch.exp2(top[..., 0])
+    x[..., 0] = amax
+    k = torch.randint(-7, 7, (C, nb, 16), generator=g, device=dev).float() + 0.5
+    x[..., 1:17] = k * packing.exact_div(amax, 7.0)[..., None]
+    x[..., 17:33] = (k * 18) * packing.exact_div(amax, 127.0)[..., None]
+    x[..., 33::97] = 0.0
+    return x.reshape(C, -1)[:, :n].contiguous()
+
+
+def tile_stride_n(dev) -> int:
+    """Elements of one pass of a whole-tile kernel's persistent grid over one
+    row (SMs x 16 warps x 1024): K4/K7's grid stride, and K5a's at C = 1."""
+    from repro_torch.kernels import pack as kpack
+
+    return (torch.cuda.get_device_properties(dev).multi_processor_count
+            * kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_BLOCK)
+
+
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values in rows that start 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape).copy_(x)
+    check(out.is_contiguous() and out.data_ptr() % 16, "rows meant to be off 16 bytes are not")
+    return out
+
+
 def phase6(dev, card: str) -> dict:
     """K4, K6, K7 and K8 against their plain versions on the card, bitwise;
     times and bounds at the main path's shapes. -> {kernel: fields}."""
     from repro_torch.configs import get_arch
     from repro_torch.core import packing
     from repro_torch.kernels import ops
-    from repro_torch.kernels import pack as kpack
     from repro_torch.models import yolov3
 
     cfg = get_arch("fedyolov3")
@@ -746,22 +804,7 @@ def phase6(dev, card: str) -> dict:
         return x, torch.rand(C, generator=g, device=dev)
 
     def wide(C, n):
-        """Rows whose 1024-blocks have an amax of 1.5 * 2^E, E uniform in
-        [-60, 125) (so scales above 2^100 too), and elements 0-70 binades
-        below it (some below 2^-90, some subnormal), exact zeros, and
-        elements at half steps k + 1/2 of the block's scale for Q = 127 and
-        Q = 7 (quotients within an ulp of a tie)."""
-        nb = -(-n // 1024)
-        top = torch.randint(-60, 125, (C, nb, 1), generator=g, device=dev).float()
-        x = torch.exp2(top - 70 * torch.rand((C, nb, 1024), generator=g, device=dev))
-        x = torch.where(torch.rand(x.shape, generator=g, device=dev) < 0.5, -x, x)
-        amax = 1.5 * torch.exp2(top[..., 0])
-        x[..., 0] = amax
-        k = torch.randint(-7, 7, (C, nb, 16), generator=g, device=dev).float() + 0.5
-        x[..., 1:17] = k * packing.exact_div(amax, 7.0)[..., None]
-        x[..., 17:33] = (k * 18) * packing.exact_div(amax, 127.0)[..., None]
-        x[..., 33::97] = 0.0
-        return x.reshape(C, -1)[:, :n].contiguous(), torch.rand(C, generator=g, device=dev)
+        return wide_rows(C, n, g, dev), torch.rand(C, generator=g, device=dev)
 
     stats = {}
 
@@ -791,17 +834,14 @@ def phase6(dev, card: str) -> dict:
 
     # -- K4 and K7: the quant8 / quant4 round's (3, N), then ragged cases, the
     # whole-tile kernel's grid-stride edges, and rows off a 16-byte boundary
-    stride_n = (torch.cuda.get_device_properties(dev).multi_processor_count
-                * kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_BLOCK)
+    stride_n = tile_stride_n(dev)
     edges = [(3, stride_n, 1024), (3, stride_n + 100 * 1024 + 516, 1024)]
     for C, n, block, off in [(3, N, 1024, 0), *[(*case, 0) for case in QUANT_RAGGED + edges],
                              *[(*case, 1) for case in QUANT_UNALIGNED],
                              *[(*case, -1) for case in QUANT_WIDE]]:
         x, w = wide(C, n) if off < 0 else delta(C, n)
         if off > 0:  # the same rows, starting one float into a buffer
-            buf = torch.empty(C * n + off, device=dev)
-            x = buf[off:].view(C, n).copy_(x)
-            check(x.is_contiguous() and x.data_ptr() % 16, "QUANT_UNALIGNED rows are not off 16 bytes")
+            x = unaligned(x)
         what = (f"C={C} N={n} block={block}" + (f" rows {4 * off} bytes off 16" if off > 0 else "")
                 + (" wide" if off < 0 else ""))
         hold("quant8_reduce", lambda: ops.quant8_reduce(x, w, block=block),
@@ -1696,6 +1736,7 @@ def phase11a(dev, card: str) -> dict:
     fedyolov3's whole tree. -> {kernel: fields}."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import pack as kpack
     from repro_torch.kernels import quant as kquant
     from repro_torch.models import yolov3
     from repro_torch.models.params import flatten_with_paths, init_params
@@ -1726,10 +1767,21 @@ def phase11a(dev, card: str) -> dict:
         return x
 
     main = rows(3, N)
-    cases = [(main, 1024), (torch.from_numpy(ties_rows()).to(dev), 256)]
-    cases += [(rows(C, n), block) for C, n, block in ROWQ_RAGGED]
-    for x, block in cases:
-        what = f"C={x.shape[0]} N={x.shape[1]} block={block}"
+    ties = torch.from_numpy(ties_rows()).to(dev)
+    stride_n = tile_stride_n(dev)
+    cases = [(main, 1024, ""), (ties, 256, ""), (ties, 1024, "")]
+    cases += [(rows(C, n), block, "") for C, n, block in ROWQ_RAGGED]
+    # the whole-tile kernel's edges: the smallest launch it takes (SMs x 4
+    # units) and one unit less (the generic kernel), one whole grid stride
+    # (C = 1), a partial last stride and block with a row boundary inside a
+    # warp's walk
+    min_n = stride_n // kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_WARPS_PER_CTA
+    cases += [(rows(1, n), 1024, "") for n in (min_n, min_n - 1024, stride_n)]
+    cases += [(rows(2, stride_n + 100 * 1024 + 516), 1024, "")]
+    cases += [(unaligned(rows(C, n)), block, " rows 4 bytes off 16") for C, n, block in QUANT_UNALIGNED]
+    cases += [(wide_rows(C, n, g, dev), block, " wide") for C, n, block in QUANT_WIDE]
+    for x, block, tag in cases:
+        what = f"C={x.shape[0]} N={x.shape[1]} block={block}{tag}"
         q, sc = ops.quantize_rows(x, block=block)
         qr, sr = ops.quantize_rows(x, block=block, impl="ref")
         held("quantize_rows", q, qr, what + " q")
@@ -1737,13 +1789,19 @@ def phase11a(dev, card: str) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             held("dequantize_rows", ops.dequantize_rows(q, sc, dtype=dt, block=block),
                  ops.dequantize_rows(q, sc, dtype=dt, block=block, impl="ref"), f"{what} {dt}")
-    tq, ts = ops.quantize_rows(cases[1][0], block=256)
+        # K12a is K5a at C = 1: one row of the case, alone (row 0 of the
+        # unaligned rows starts 4 bytes off 16 too)
+        q1, s1 = ops.quantize(x[0], block=block)
+        qr1, sr1 = ops.quantize(x[0], block=block, impl="ref")
+        held("quantize", q1, qr1, what + " row 0 q")
+        held("quantize", s1, sr1, what + " row 0 scales")
+    tq, ts = ops.quantize_rows(ties, block=256)
     check(float(ts[0, 0]) == 1.0 and tq[0, :4].tolist() == [-126, -126, -124, -124],
           f"ties: scale {float(ts[0, 0])}, q {tq[0, :4].tolist()} (half to even expected)")
     mq, ms_ = ops.quantize_rows(main)
     timings = {
         "quantize_rows": (lambda: ops.quantize_rows(main), lambda: ops.quantize_rows(main, impl="ref"),
-                          "rowquant_kernel"),
+                          "rowquant_tile_kernel"),
         "dequantize_rows": (lambda: ops.dequantize_rows(mq, ms_),
                             lambda: ops.dequantize_rows(mq, ms_, impl="ref"), "rowdequant_kernel"),
     }
@@ -1753,10 +1811,16 @@ def phase11a(dev, card: str) -> dict:
         st["device_ms"], st["device_ms_from"] = device_ms(kern, kname)
         st["bound_ms"], st["bound_by"] = rowq_bound_ms(3, N, 1024)
         st["library_ms"] = None  # no one torch call quantizes per 1024-block
+        flushed = ""
+        if name == "quantize_rows":
+            check(st["device_ms_from"] == "profiler",
+                  f"K5a's {kname} device time came from {st['device_ms_from']}, not the profiler")
+            st["flushed_l2_device_ms"], src = flushed_device_ms(kern, kname)
+            flushed = f" flushed_l2_device_ms={st['flushed_l2_device_ms']} ({src})"
         print(f"phase11a {name} at the quant8 round's (3, {N}), block 1024: kernel_ms={st['ms']:.4f} "
-              f"device_ms={st['device_ms']} ({st['device_ms_from']}) plain_ms={st['plain_ms']:.4f} bound_ms="
-              f"{st['bound_ms']:.4f} ({st['bound_by']}); {st['cases']} cases bitwise-equal  [{card}]",
-              flush=True)
+              f"device_ms={st['device_ms']} ({st['device_ms_from']}){flushed} plain_ms="
+              f"{st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} ({st['bound_by']}); "
+              f"{st['cases']} cases bitwise-equal  [{card}]", flush=True)
     del main, mq, ms_, cases
 
     # K12a/K12b: the tree form over fedyolov3's whole tree, one launch per leaf
@@ -1780,12 +1844,14 @@ def phase11a(dev, card: str) -> dict:
     bound = roofline(nbytes, 5 * N)
     for name, kern, plain, kname in (
             ("quantize", lambda: ops.quantize_tree(tree), lambda: ops.quantize_tree(tree, impl="ref"),
-             "rowquant_kernel"),
+             "rowquant_"),  # both quantize kernels, rowquant_tile_kernel and rowquant_kernel
             ("dequantize", lambda: ops.dequantize_tree(qt, tree),
              lambda: ops.dequantize_tree(qt, tree, impl="ref"), "rowdequant_kernel")):
         st = stats[name]
         st["ms"], st["plain_ms"] = time_ms(kern, reps=5), time_ms(plain, reps=3, warmup=1)
         st["device_ms"], st["device_ms_from"] = device_ms(kern, kname, reps=1, launches=len(leaves))
+        check(name != "quantize" or st["device_ms_from"] == "profiler",
+              f"K12a's tree device time came from {st['device_ms_from']}, not the profiler")
         st["bound_ms"], st["bound_by"] = bound
         st["library_ms"] = None
         st["launches"] = launches[name]
@@ -2160,6 +2226,10 @@ def main() -> None:
 
     # ---- phases 4 and 5: the training path's kernels and the path -------
     k_stats = phase4(dev, card)
+    floor_ms, floor_from = launch_floor_ms()
+    print(f"phase4 launch floor (a one-element kernel): device_ms={floor_ms} ({floor_from}); the "
+          f"launch-bound K3 (nms_keep) and K2 (pairwise_iou) are bound by the larger of it and "
+          f"their bytes  [{card}]", flush=True)
     train_launches = phase5(dev, card)
 
     # ---- phases 6 and 7: the uplink's kernels and its modes --------------
@@ -2208,13 +2278,14 @@ def main() -> None:
     demo = lm_train["fedavg_masked_mean"]
     kernels = [
         entry("nms_keep", "nms.cu", "detect.py:173", launches, k_stats["nms_keep"],
-              launches_training=train_launches["nms_keep"]),
+              launches_training=train_launches["nms_keep"], launch_floor_ms=floor_ms,
+              launch_floor_ms_from=floor_from),
         entry("packed_bucket_reduce", "bucket_reduce.cu", "pack.py:132",
               train_launches["packed_bucket_reduce"], k_stats["packed_bucket_reduce"],
               launches_lm_training=lm_train["packed_bucket_reduce"],
               launches_demo=lm_train["packed_bucket_reduce_demo"]),
         entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
-              k_stats["pairwise_iou"]),
+              k_stats["pairwise_iou"], launch_floor_ms=floor_ms, launch_floor_ms_from=floor_from),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],
               k_stats["quant8_reduce"], main_path=f"FLServer quant8 without a client mesh, "
               f"{uplink_launches['quant8_meshless_rounds']} rounds",
@@ -2237,6 +2308,7 @@ def main() -> None:
               tree_device_ms=demo["tree_device_ms"], tree_device_ms_from=demo["tree_device_ms_from"]),
         entry("quantize_rows", "row_quant.cu", "pack.py:200", uplink_launches["quantize_rows"],
               k_stats["quantize_rows"], launches_compact=compact_launches["quant8"]["quantize_rows"],
+              flushed_l2_device_ms=k_stats["quantize_rows"]["flushed_l2_device_ms"],
               main_path=f"--agg quant8 on the launcher's 1 x 1 mesh, "
               f"{uplink_launches['quant8_rounds']} rounds"),
         entry("dequantize_rows", "row_quant.cu", "pack.py:231", uplink_launches["dequantize_rows"],

@@ -4,10 +4,12 @@ The sources under ``kernels/csrc/`` (``nms.cu`` K3, ``bucket_reduce.cu`` K1,
 ``iou.cu`` K2, ``quant_reduce.cu`` K4 and K7, ``row_quant.cu`` K5a, K5b,
 K12a and K12b, ``grouped_reduce.cu`` K6, ``masked_sum.cu`` K8,
 ``flash_attention.cu`` K9, ``ssd_scan.cu`` K10, ``fedavg.cu`` K11, the
-shared ``errors.cu``, the header ``block_amax.cuh`` that K4/K7 and
-K5a/K12a share and the header ``mma_tf32.cuh`` that K9 and K10 share: the
-3xTF32 split, the tf32 ``mma.sync`` and ``cp.async``) are compiled for
-``sm_90a`` by
+shared ``errors.cu``, the headers ``block_amax.cuh`` (the CTA-wide amax of
+the generic K4/K7 and K5a/K12a kernels) and ``quant_tile.cuh`` (the tile
+machinery of their whole-tile kernels: ``cp.async`` ring, warp amax,
+persistent grid, the exact per-block divide), and the header
+``mma_tf32.cuh`` that K9 and K10 share: the 3xTF32 split, the tf32
+``mma.sync`` and ``cp.async``) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
 ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
@@ -69,6 +71,7 @@ def _load_locked() -> ctypes.CDLL:
         "quant_reduce_launch": [p, p, p, i, ll, i, f, i, u, p],
         "quant_reduce_tile_residency": [i],
         "quantize_rows_launch": [p, p, p, i, ll, i, i, p],
+        "quantize_rows_tile_residency": [],
         "dequantize_rows_launch": [p, p, p, i, i, ll, i, i, p],
         "grouped_reduce_launch": [p, p, p, i, i, ll, p],
         "masked_u32_sum_launch": [p, p, p, i, ll, p],

@@ -29,16 +29,37 @@
 // operations (an abs and a max, a divide, a round, a clip; a multiply),
 // far below the card's operations-per-byte balance. At the launcher's quant8
 // shape (3, 13,312,864) that is 199.85 MB each way, 0.0597 ms at 3.35 TB/s.
-// Design: quantize runs one CTA per (scale block, row), grid
-// (ceil(N / block), C), so the block's amax is a CTA-wide reduction
-// (block_amax.cuh, shared with K4) over values the threads keep in registers:
-// each element is read once, 16 bytes per thread per load, neighbouring
-// threads on neighbouring addresses, and q is stored four int8 at a time.
-// One thread writes the block's scale. Dequantize is elementwise: one thread
-// per four elements, a 4-byte load of q, its block's scale through the
-// read-only cache, one 16-byte (f32) or 8-byte (bf16) store. Rows that are
-// not aligned for the vector accesses (N % 4 != 0) take a scalar path with
-// the same arithmetic.
+//
+// Quantize has two instantiations.
+//
+// The whole-tile kernel (rowquant_tile_kernel) takes the main path: block
+// 1024, N % 4 == 0, x 16-byte and q 4-byte aligned, and at least SMs x 4
+// units (smaller launches: quantize_rows_launch). It runs on the tile
+// machinery of K4/K7 (quant_tile.cuh). A unit of work is one (row, scale
+// block) pair, 4 KB of f32; the units of all rows form one flat sequence
+// (row-major, so neighbouring warps read neighbouring addresses) that the
+// persistent grid's warps walk with a stride of every warp of the grid. A
+// warp owns one unit at a time: its amax is five shuffles, no barrier; the
+// next two units' 8 KB are in flight by cp.async in the warp's ring (128
+// KB per SM) while it quantizes this one; the divide's reciprocal is
+// computed once per unit (BlockDivisor), and each lane stores its q four
+// int8 at a time (st.global.cs), 128 contiguous bytes per warp and store,
+// and lane 0 the unit's scale. Nothing accumulates across units, so the
+// order of the walk is free.
+//
+// The generic kernel (rowquant_kernel) keeps every other case (blocks
+// 4-4096, ragged N, unaligned rows, small launches): one CTA per (scale
+// block, row), grid (ceil(N / block), C), so the block's amax is a
+// CTA-wide reduction (block_amax.cuh, shared with K4) over values the
+// threads keep in registers: each element is read once, 16 bytes per
+// thread per load, neighbouring threads on neighbouring addresses, and q is
+// stored four int8 at a time. One thread writes the block's scale. Rows
+// that are not aligned for the vector accesses (N % 4 != 0) take a scalar
+// path with the same arithmetic.
+//
+// Dequantize is elementwise: one thread per four elements, a 4-byte load of
+// q, its block's scale through the read-only cache, one 16-byte (f32) or
+// 8-byte (bf16) store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +67,7 @@
 #include <cstdint>
 
 #include "block_amax.cuh"
+#include "quant_tile.cuh"
 
 namespace {
 
@@ -53,9 +75,12 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxChunks = 4;  // float4 chunks per thread: block <= 4096
 constexpr int kDequantThreads = 256;
 
-__device__ __forceinline__ signed char quant(float x, float scale) {
-  return static_cast<signed char>(fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f));
+// q of the quotient v = x / scale
+__device__ __forceinline__ signed char clip_q(float v) {
+  return static_cast<signed char>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
+
+__device__ __forceinline__ signed char quant(float x, float scale) { return clip_q(x / scale); }
 
 template <bool kVec4>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -105,6 +130,86 @@ rowquant_kernel(const float* __restrict__ x, signed char* __restrict__ q,
         if (off + j < block && e + j < n) qrow[e + j] = quant(v[k][j], scale);
     }
   }
+}
+
+// The whole-tile instantiation: block 1024, N % 4 == 0, x 16-byte and q
+// 4-byte aligned. `units` = C * nblocks < 2^31 (row, scale block) pairs, unit
+// u = row * nblocks + block, which is also its scale's index. Unit indices
+// are 32-bit: a 64-bit division is a long software sequence, and the warp's
+// first copies wait on the divisions below.
+__global__ void __launch_bounds__(kTileWarps * 32, kTileCtasPerSm)
+rowquant_tile_kernel(const float* __restrict__ x, signed char* __restrict__ q,
+                     float* __restrict__ scales, long long n, unsigned nblocks, unsigned units) {
+  __shared__ float4 ring[kTileWarps][kTileStages][kTileSlice];
+  const int lane = threadIdx.x & 31;
+  float4(*slots)[kTileSlice] = ring[threadIdx.x >> 5];
+  const unsigned first = blockIdx.x * kTileWarps + (threadIdx.x >> 5);
+  const unsigned stride = gridDim.x * kTileWarps;
+  if (first >= units) return;
+  const unsigned mine = (units - 1 - first) / stride + 1;  // this warp's units
+  // a step of `stride` units moves (row, block) by (drow, dblock) and a carry
+  const unsigned drow = stride / nblocks, dblock = stride % nblocks;
+  auto advance = [&](unsigned& row, unsigned& block) {
+    row += drow;
+    block += dblock;
+    if (block >= nblocks) {
+      block -= nblocks;
+      ++row;
+    }
+  };
+
+  const unsigned row0 = first / nblocks, block0 = first - row0 * nblocks;
+  unsigned copy_row = row0, copy_block = block0, issued = 0;
+  auto issue = [&](int slot) {  // the copies of the next unit not yet issued
+    const float* src = x + copy_row * n + copy_block * static_cast<long long>(kTileBlock);
+#pragma unroll
+    for (int k = 0; k < kTileChunks; ++k) {
+      const int off = k * 128 + lane * 4;
+      // N % 4 == 0: a piece is wholly in or wholly past N
+      const bool in = copy_block * static_cast<long long>(kTileBlock) + off < n;
+      cp_async16_zfill(&slots[slot][k * 32 + lane], in ? src + off : src, in ? 16u : 0u);
+    }
+    advance(copy_row, copy_block);
+    ++issued;
+  };
+#pragma unroll
+  for (int s = 0; s < kTileStages - 1; ++s) {
+    if (issued < mine) issue(s);
+    cp_async_commit();  // one group per unit, empty past the last
+  }
+
+  unsigned row = row0, block = block0;
+  int slot = 0;
+  for (unsigned u = 0; u < mine; ++u) {
+    // refill the slot unit u - 1 read (this lane's own reads of it have completed)
+    if (issued < mine) issue(slot == 0 ? kTileStages - 1 : slot - 1);
+    cp_async_commit();
+    cp_async_wait<kTileStages - 1>();  // unit u's group has landed
+    float4 v[kTileChunks];
+    float amax = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kTileChunks; ++k) {
+      v[k] = slots[slot][k * 32 + lane];
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[k].x), fabsf(v[k].y)),
+                               fmaxf(fabsf(v[k].z), fabsf(v[k].w))));
+    }
+    const float scale = fmaxf(warp_amax(amax), 1e-12f) / 127.0f;
+    const BlockDivisor div = block_divisor(scale);
+    if (lane == 0) scales[static_cast<size_t>(row) * nblocks + block] = scale;
+    const long long start = block * static_cast<long long>(kTileBlock);  // in the row
+    signed char* qblock = q + row * n + start;
+#pragma unroll
+    for (int k = 0; k < kTileChunks; ++k) {
+      const int off = k * 128 + lane * 4;
+      if (start + off < n)
+        __stcs(reinterpret_cast<char4*>(qblock + off),
+               make_char4(clip_q(divide(v[k].x, div)), clip_q(divide(v[k].y, div)),
+                          clip_q(divide(v[k].z, div)), clip_q(divide(v[k].w, div))));
+    }
+    advance(row, block);
+    slot = slot + 1 == kTileStages ? 0 : slot + 1;
+  }
+  cp_async_wait<0>();
 }
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
@@ -169,7 +274,13 @@ bool bad_shape(int n_rows, int block) {
 // Plain C entry points, bound with ctypes. Each launches on `stream`, does
 // not synchronise and returns the cudaError_t of the launch. The wrappers
 // guarantee contiguous operands, 1 <= n_rows <= 65535, block % 4 == 0,
-// 4 <= block <= 4096 and n_blocks = ceil(n / block).
+// 4 <= block <= 4096 and n_blocks = ceil(n / block). Quantize takes the
+// whole-tile kernel at block 1024 on aligned rows (N % 4 == 0) with at least
+// kTileWarps units per SM (tile_grid decides), every other case the generic
+// one. Below that the whole-tile kernel's warps own one unit each and have
+// no copies to overlap, and a unit's 1024 elements pass through one warp
+// where the generic kernel spreads them over a CTA of 8 warps, which
+// finishes sooner (fedyolov3's small leaves; PERF.md §6).
 extern "C" int quantize_rows_launch(const float* x, signed char* q, float* scales, int n_rows,
                                     long long n, int block, int n_blocks, void* stream) {
   if (n <= 0) return 0;
@@ -177,6 +288,17 @@ extern "C" int quantize_rows_launch(const float* x, signed char* q, float* scale
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const long long units = static_cast<long long>(n_rows) * n_blocks;
+  if (vec4 && block == kTileBlock && units < (1LL << 31)) {
+    unsigned ctas = 0;
+    const cudaError_t err = tile_grid<rowquant_tile_kernel>(units, kTileWarps, &ctas);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (ctas) {
+      rowquant_tile_kernel<<<ctas, kTileWarps * 32, 0, s>>>(x, q, scales, n, n_blocks,
+                                                             static_cast<unsigned>(units));
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   int threads = ((block + 3) / 4 + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const dim3 grid(static_cast<unsigned>(n_blocks), static_cast<unsigned>(n_rows));
@@ -203,3 +325,8 @@ extern "C" int dequantize_rows_launch(const signed char* q, const float* scales,
                  : dequant_launch<__nv_bfloat16>(q, scales, out, n_rows, n, block, n_blocks, vec4, s);
   return static_cast<int>(err);
 }
+
+// CTAs of the whole-tile quantizer that fit on one SM at once (the launch
+// assumes kTileCtasPerSm), or minus a cudaError_t; for the check script
+// (scripts/row_quant_check.py), never called on a round.
+extern "C" int quantize_rows_tile_residency() { return tile_residency<rowquant_tile_kernel>(); }

@@ -67,10 +67,12 @@ packed_bucket_reduce.launches = 0
 
 # the generic CUDA kernel gives each thread at most 4 float4 chunks of a scale block
 MAX_QUANT_BLOCK = 4096
-# csrc/quant_reduce.cu's whole-tile kernel (block 1024, N % 4 == 0, 16-byte
-# aligned rows): one warp per scale block at a time, 4 CTAs of 4 warps per
-# SM, so one pass of its persistent grid covers SMs x 16 scale blocks
-QUANT_TILE_BLOCK, QUANT_TILE_WARPS_PER_SM = 1024, 16
+# the whole-tile kernels of csrc/quant_reduce.cu (K4/K7) and csrc/row_quant.cu
+# (K5a/K12a) (block 1024, N % 4 == 0, 16-byte aligned rows; csrc/quant_tile.cuh):
+# one warp per scale block at a time, 4 CTAs of 4 warps per SM, so one pass
+# of their persistent grid covers SMs x 16 scale blocks. The row quantizer
+# takes its whole-tile kernel from SMs x 4 (row, scale block) units up.
+QUANT_TILE_BLOCK, QUANT_TILE_WARPS_PER_CTA, QUANT_TILE_WARPS_PER_SM = 1024, 4, 16
 
 
 def check_quant_operands(what: str, delta: torch.Tensor, weights: torch.Tensor, block: int) -> None:

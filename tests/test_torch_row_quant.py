@@ -48,6 +48,16 @@ ROW_CASES = [(3, 2500, 256), (5, 3333, 128), (1, 77, 64), (9, 5001, 1024), (2, 4
              (3, 1030, 1024), (4, 1024, 4)]
 # (N, block): tests/test_kernels.py::test_quant_roundtrip's, and ragged ones
 BLOCK_CASES = [(1024, 256), (5000, 1024), (256, 256), (77, 64), (1, 4), (4097, 1024)]
+# (C, N, block) edges of the card's whole-tile quantizer (csrc/row_quant.cu,
+# block 1024, N % 4 == 0), whose persistent grid walks the (row, scale block)
+# units of all rows, on an H100 (132 SMs): C = 17 (680 units); the smallest
+# launch it takes (132 x 4 units) and one unit less (the generic kernel's);
+# N one whole grid stride (132 x 16 units) at C = 1; a partial last stride
+# and block at C = 2, where a row ends inside a warp's walk
+TILE_STRIDE_N = 132 * kpack.QUANT_TILE_WARPS_PER_SM * kpack.QUANT_TILE_BLOCK
+TILE_MIN_N = 132 * kpack.QUANT_TILE_WARPS_PER_CTA * kpack.QUANT_TILE_BLOCK
+ROW_TILE_EDGES = [(17, 40_000, 1024), (1, TILE_MIN_N, 1024), (1, TILE_MIN_N - 1024, 1024),
+                  (1, TILE_STRIDE_N, 1024), (2, TILE_STRIDE_N + 100 * 1024 + 516, 1024)]
 
 
 def t(a):
@@ -83,18 +93,18 @@ def _ties(block=256):
     return np.stack([row0, row1])
 
 
-def test_quantize_rows_plain_version_matches_reference_and_pallas():
-    for C, N, block in ROW_CASES:
-        x = _rows(C, N, seed=C * N)
-        before = kpack.quantize_rows.launches
-        q, s = kpack.quantize_rows(t(x), block=block)
-        assert kpack.quantize_rows.launches == before  # the CPU takes the plain version
-        assert q.dtype == torch.int8 and q.shape == (C, N) and s.shape == (C, -(-N // block))
-        qr, sr = jpacking.quantize_rows_ref(jnp.asarray(x), block)
-        assert same_bits(q.numpy(), qr) and same_bits(s.numpy(), sr), (C, N, block)
-        qp, sp = jpack.quantize_rows(jnp.asarray(x), block=block, interpret=True)
-        assert same_bits(q.numpy(), qp), (C, N, block)
-        np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=1e-6, atol=0)
+@pytest.mark.parametrize("C,N,block", ROW_CASES + ROW_TILE_EDGES)
+def test_quantize_rows_plain_version_matches_reference_and_pallas(C, N, block):
+    x = _rows(C, N, seed=C * N)
+    before = kpack.quantize_rows.launches
+    q, s = kpack.quantize_rows(t(x), block=block)
+    assert kpack.quantize_rows.launches == before  # the CPU takes the plain version
+    assert q.dtype == torch.int8 and q.shape == (C, N) and s.shape == (C, -(-N // block))
+    qr, sr = jpacking.quantize_rows_ref(jnp.asarray(x), block)
+    assert same_bits(q.numpy(), qr) and same_bits(s.numpy(), sr), (C, N, block)
+    qp, sp = jpack.quantize_rows(jnp.asarray(x), block=block, interpret=True)
+    assert same_bits(q.numpy(), qp), (C, N, block)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sp), rtol=1e-6, atol=0)
 
 
 def test_quantize_rows_half_ties_round_to_even_and_clip():
@@ -235,26 +245,80 @@ def test_quant8_on_a_one_rank_mesh_equals_the_meshless_transport():
     assert torch.equal(sa["base"].view(torch.int32), sb["base"].view(torch.int32))
 
 
-@pytest.mark.cuda
-def test_row_and_block_quantizer_kernels_equal_plain_versions_on_card():
-    """K5a, K5b, K12a and K12b on the card against their plain versions on
-    the card, bitwise, at ragged shapes, ties and both output dtypes."""
+def _wide_rows(C, N, seed):
+    """Rows whose 1024-blocks have an amax of 1.5 * 2^E, E in [-60, 125) (so
+    scales above 2^100), elements 0-70 binades below it (some below 2^-90,
+    some subnormal), exact zeros, and elements on half steps k + 1/2 of the
+    block's scale: the whole-tile kernel's division in and out of the range
+    where it runs fast (chip_smoke.py's ``wide_rows``)."""
+    rng = np.random.default_rng(seed)
+    nb = -(-N // 1024)
+    top = rng.integers(-60, 125, (C, nb, 1)).astype(np.float32)
+    x = np.exp2(top - np.float32(70) * rng.random((C, nb, 1024), dtype=np.float32))
+    x = np.where(rng.random(x.shape) < 0.5, -x, x).astype(np.float32)
+    amax = np.float32(1.5) * np.exp2(top[..., 0])
+    x[..., 0] = amax
+    k = rng.integers(-7, 7, (C, nb, 16)).astype(np.float32) + np.float32(0.5)
+    x[..., 1:17] = (k * 18) * (amax / np.float32(127))[..., None]
+    x[..., 17::97] = 0.0
+    return np.ascontiguousarray(x.reshape(C, -1)[:, :N])
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda")
-    for C, N, block in ROW_CASES:
-        x = t(_rows(C, N, seed=C * N)).to(dev)
-        q, s = ops.quantize_rows(x, block=block)
-        qr, sr = ops.quantize_rows(x, block=block, impl="ref")
-        assert torch.equal(q, qr) and torch.equal(s.view(torch.int32), sr.view(torch.int32))
-        for dtype in (torch.float32, torch.bfloat16):
-            a = ops.dequantize_rows(q, s, dtype=dtype, block=block)
-            b = ops.dequantize_rows(q, s, dtype=dtype, block=block, impl="ref")
-            assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
-                               b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
-    for N, block in BLOCK_CASES:
-        x = t(np.random.default_rng(N).normal(size=N).astype(np.float32)).to(dev)
-        q, s = ops.quantize(x, block=block)
-        assert all(torch.equal(u, v) for u, v in zip((q, s), ops.quantize(x, block=block, impl="ref")))
-        assert torch.equal(ops.dequantize(q, s, block=block),
-                           ops.dequantize(q, s, block=block, impl="ref"))
+    return torch.device("cuda")
+
+
+def _hold_on_card(x, block):
+    """K5a and K5b on the card rows ``x``, and K12a/K12b on its row 0, against
+    their plain versions on the card, bitwise."""
+    q, s = ops.quantize_rows(x, block=block)
+    qr, sr = ops.quantize_rows(x, block=block, impl="ref")
+    assert torch.equal(q, qr) and torch.equal(s.view(torch.int32), sr.view(torch.int32))
+    for dtype in (torch.float32, torch.bfloat16):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        a = ops.dequantize_rows(q, s, dtype=dtype, block=block)
+        b = ops.dequantize_rows(q, s, dtype=dtype, block=block, impl="ref")
+        assert torch.equal(a.view(bits), b.view(bits))
+    q1, s1 = ops.quantize(x[0], block=block)
+    qr1, sr1 = ops.quantize(x[0], block=block, impl="ref")
+    assert torch.equal(q1, qr1) and torch.equal(s1.view(torch.int32), sr1.view(torch.int32))
+    assert torch.equal(ops.dequantize(q1, s1, block=block),
+                       ops.dequantize(q1, s1, block=block, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "main", "tile_edges", "unaligned", "wide"])
+def test_row_and_block_quantizer_kernels_equal_plain_versions_on_card(case):
+    """K5a, K5b, K12a and K12b on the card against their plain versions on
+    the card, bitwise: ragged shapes, ties and both output dtypes; the quant8
+    round's (3, 13,312,864); the whole-tile kernel's edges at the card's SM
+    count; rows 4 bytes off a 16-byte boundary (the generic kernel at block
+    1024); rows spanning 2^-130 to 2^125 with ties."""
+    dev = _card()
+    if case == "ragged":
+        for C, N, block in ROW_CASES:
+            _hold_on_card(t(_rows(C, N, seed=C * N)).to(dev), block)
+        _hold_on_card(t(_ties()).to(dev), 256)
+        for N, block in BLOCK_CASES:
+            x = t(np.random.default_rng(N).normal(size=N).astype(np.float32)).to(dev)
+            _hold_on_card(x[None], block)
+    elif case == "main":
+        _hold_on_card(t(_rows(3, 13_312_864, seed=3)).to(dev), 1024)
+    elif case == "tile_edges":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        least = sms * kpack.QUANT_TILE_WARPS_PER_CTA * 1024
+        stride = sms * kpack.QUANT_TILE_WARPS_PER_SM * 1024
+        for C, N in [(17, 40_000), (1, least), (1, least - 1024), (1, stride),
+                     (2, stride + 100 * 1024 + 516)]:
+            _hold_on_card(t(_rows(C, N, seed=N)).to(dev), 1024)
+    elif case == "unaligned":
+        for C, N, block in [(3, 5000, 1024), (2, 4096 * 3, 4096)]:
+            buf = torch.empty(C * N + 1, device=dev)
+            x = buf[1:].view(C, N).copy_(t(_rows(C, N, seed=N)))
+            assert x.data_ptr() % 16 == 4
+            _hold_on_card(x, block)
+    else:
+        for C, N in [(3, 65536 + 12), (2, 1 << 20), (3, 5001)]:
+            _hold_on_card(t(_wide_rows(C, N, seed=N)).to(dev), 1024)
