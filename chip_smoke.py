@@ -15,10 +15,13 @@ recorded every launch made; where no trace does, the kernels line says
    grouped reduce K6, quant4 reduce K7, masked sum K8, flash attention K9,
    SSD chunk scan K10, per-leaf FedAvg K11, block quantize/dequantize
    K12a/K12b) from ``src/repro_torch/kernels/csrc`` and its time.
-2. NMS kernel vs plain: the CUDA NMS scan against the plain PyTorch scan,
-   both on the card, over six case kinds at (B, N) in (1, 1), (8, 16),
-   (64, 100), (4, 1024). Keep masks must be bitwise equal (tolerance:
-   none). Median times over 20 launches, CUDA events.
+2. NMS kernel vs plain: the CUDA keep-mask kernel against the plain
+   PyTorch scan, both on the card, over seven case kinds (one with boxes
+   whose IoU lands exactly on the threshold) at (B, N) in (1, 1), (8, 16)
+   (served), (3, 33) (a word edge), (8, 64) (eval), (64, 100), (4, 1024)
+   (the bitmask kernel's largest) and (2, 2048) (the scan kernel's). Keep
+   masks must be bitwise equal (tolerance: none), the whole NMS and the
+   keep mask alone. Median times over 20 launches, CUDA events.
 3. Serving at full width: fedyolov3 (5 stages, widths 64..1024, 13.3 M
    params, random weights from seed 0) at 416x416, serve_batch 8, 16
    detections per image, behind ``InferenceService``; 8 concurrent
@@ -29,8 +32,11 @@ recorded every launch made; where no trace does, the kernels line says
    padded-batch pin), slot 0 alone equals slot 0 in a full batch, decode
    with the CUDA NMS equals decode with the plain NMS, and the card's
    forward agrees with the host's (rtol 1e-4 / atol 1e-5). Then a profile
-   of the detection program and the kernel's time at the served shape
-   beside its bound.
+   of the detection program (exactly one ``nms_bitmask_kernel`` launch a
+   batch), and the kernel's time at the served shape on the served inputs
+   beside its bound and the card's launch floor (the device time of a
+   one-element kernel: the real bound of the launch-bound K2 and K3), with
+   the share of the floor reached.
 4. K1 and K2 vs plain, bitwise (tolerance: none): the bucket reduce at the
    training path's (3, 13,312,864) with fedyolov3's bucket ids and mask
    [1, 0, 1], at the reference's random-id cases (4, 3000, 3), (3, 1024, 5),
@@ -38,8 +44,7 @@ recorded every launch made; where no trace does, the kernels line says
    IoU at (B, N, M) in (12, 64, 3), (1, 1, 1), (8, 128, 128), (2, 1000,
    1000), (4, 300, 7), IoU and GIoU, random and degenerate boxes. Median
    kernel ms over 20 launches (CUDA events), device ms (profiler), plain
-   ms, and the bound. Then the card's launch floor, the device time of a
-   one-element kernel: the real bound of the launch-bound K2 and K3.
+   ms, and the bound.
 5. Federated training at full width. (a) One masked eq6 round on the card
    and the same round on the host (``device="cpu"``) from one initial
    state and one batch (img 64, 3 clients, batch 2, sgd lr 1e-3): round
@@ -147,13 +152,18 @@ recorded every launch made; where no trace does, the kernels line says
    the smallest launch it takes and one unit less, N one whole persistent
    grid stride, a partial last stride and block), rows 4
    bytes off a 16-byte boundary (the generic kernel) and rows whose values
-   span 2^-130 to 2^125 with ties, float32 and bfloat16 outputs; K12a on
-   row 0 of every case; K12a/K12b through ``ops.quantize_tree`` /
-   ``dequantize_tree`` over fedyolov3's whole tree, one launch per leaf,
-   every leaf bitwise. Kernel ms (CUDA events), device ms (profiler: K5a
-   by its whole-tile kernel's name, the tree by every quantize launch, both
-   required to come from a full trace), for K5a also with the L2 flushed
-   before each call, plain ms and the bound. (b) quant8 ``aggregate`` on phase
+   span 2^-130 to 2^125 with ties, float32 and bfloat16 outputs; K12a and
+   the single-leaf decode (K5b at C = 1) on row 0 of every case;
+   K12a/K12b through ``ops.quantize_tree`` / ``dequantize_tree`` over
+   fedyolov3's whole tree, K12a one launch per leaf, K12b one launch for
+   the tree, every leaf bitwise; K12b over a
+   synthetic tree of more leaves than its launch table holds (f32 and bf16,
+   leaves of 0, 1, 3, 1023, 1025 elements and more, a q 1 byte off 16),
+   one launch per 64 leaves. Kernel ms (CUDA events), device ms (profiler:
+   K5a by its whole-tile kernel's name, the tree by every quantize launch
+   and by ``treedequant_kernel``, all required to come from a full trace),
+   for K5a also with the L2 flushed before each call, plain ms and the
+   bound. (b) quant8 ``aggregate`` on phase
    7a's buffer with a client masked out: the launcher's 1 x 1 mesh on a
    1-rank NCCL group (K5a, the int8 and scale all-gathers, the
    decode-reduce) equals meshless K4 and the host's plain path bitwise;
@@ -199,8 +209,13 @@ OPS_PER_PAIR, OPS_PER_BOX = 15, 12
 # for its corners and area
 IOU_OPS_PER_PAIR, GIOU_OPS_PER_PAIR, IOU_OPS_PER_BOX = 14, 24, 12
 
-SHAPES = [(1, 1), (8, 16), (64, 100), (4, 1024)]
-KINDS = ["random", "ties", "degenerate", "all_suppressed", "max_keep", "score_thresh"]
+# phase 2: (B, N) of the NMS cases: the served (8, 16) and eval's (8, 64); N
+# = 33 a word edge of the bitmask kernel; N = 1024 its largest, N = 2048
+# the scan's
+SHAPES = [(1, 1), (8, 16), (3, 33), (8, 64), (64, 100), (4, 1024), (2, 2048)]
+KINDS = ["random", "ties", "degenerate", "all_suppressed", "max_keep", "score_thresh", "iou_ties"]
+# the largest N the bitmask kernel takes (csrc/nms.cu kMaskMaxN)
+NMS_MASK_MAX_N = 1024
 # 1024 requests, so that p99 has 10 samples beyond it; 64 distinct scenes
 REQUESTS_PER_CLIENT, CLIENTS, SCENES, IMG = 128, 8, 64, 416
 # phase 4: (C, N, B) cases of the bucket reduce beside the main path's,
@@ -302,7 +317,9 @@ def check(cond: bool, msg: str) -> None:
 
 def make_case(kind: str, B: int, N: int, seed: int = 0):
     """-> (boxes (B, N, 4) f32, scores (B, N) f32, iou_thresh, score_thresh,
-    max_keep), the same case kinds as tests/test_torch_detect.py."""
+    max_keep), the same case kinds as tests/test_torch_detect.py;
+    ``iou_ties`` puts boxes 1/4 wide on a 1/16 grid, so the IoUs of boxes
+    2/16 apart land exactly on the threshold f32(1/3)."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(0.1, 0.9, (B, N, 2))
     wh = rng.uniform(0.02, 0.5, (B, N, 2))
@@ -326,6 +343,10 @@ def make_case(kind: str, B: int, N: int, seed: int = 0):
         mk = max(1, N // 3)
     elif kind == "score_thresh":
         sthr = 0.5
+    elif kind == "iou_ties":
+        xy = rng.integers(4, 13, (B, N, 2)) / 16.0
+        wh = np.full((B, N, 2), 0.25)
+        iou = 1.0 / 3.0
     boxes = np.concatenate([xy, wh], -1).astype(np.float32)
     return boxes, scores.astype(np.float32), iou, sthr, mk
 
@@ -459,6 +480,90 @@ def scan_bound_ms(keep_s, N: int) -> tuple[float, str]:
     kept_pos = keep_s.nonzero()[:, 1]
     pairs = int((N - 1 - kept_pos).sum())
     return roofline(nbytes, OPS_PER_PAIR * pairs + OPS_PER_BOX * B * N)
+
+
+def phase2(dev, card: str) -> int:
+    """K3 against its plain version on the card, bitwise, over KINDS x
+    SHAPES (the bitmask kernel up to N = 1024, the scan at 2048). -> the
+    number of cases."""
+    from repro_torch.kernels import detect, ops, ref
+
+    n_cases = 0
+    for kind in KINDS:
+        for B, N in SHAPES:
+            boxes, scores, iou, sthr, mk = make_case(kind, B, N)
+            tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+            kern = ops.nms(tb, ts, iou_thresh=iou, score_thresh=sthr, max_keep=mk)
+            plain = ops.nms(tb, ts, iou_thresh=iou, score_thresh=sthr, max_keep=mk, impl="ref")
+            torch.cuda.synchronize()
+            check(same_bits(kern, plain), f"nms {kind} B={B} N={N}: kernel != plain")
+            _, boxes_s, valid_s = ref.sort_by_score(tb, ts, sthr)
+            keep_k = detect.nms_keep(boxes_s, valid_s, iou)
+            keep_p = ref.nms_keep(boxes_s, valid_s, iou)
+            torch.cuda.synchronize()
+            check(same_bits(keep_k, keep_p), f"nms_keep {kind} B={B} N={N}: kernel != plain")
+            k_ms = time_ms(lambda: detect.nms_keep(boxes_s, valid_s, iou))
+            p_ms = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, iou), reps=20 if N <= 1024 else 3)
+            n_cases += 1
+            print(f"phase2 {kind:14s} B={B:3d} N={N:5d} kept={int(kern.sum()):5d} bitwise-equal "
+                  f"({'bitmask' if N <= NMS_MASK_MAX_N else 'scan'}) kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f}  [{card}]", flush=True)
+    return n_cases
+
+
+def served_model(dev):
+    """Phase 3's detection service operands: (cfg, fed, fedyolov3 at full
+    width with random weights from seed 0 on ``dev``, SCENES + 8 synthetic
+    scenes at IMG from seed 7)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models.yolov3 import FedYOLOv3
+
+    cfg = get_arch("fedyolov3")
+    fed = FedConfig(n_clients=1)  # serve_batch 8, serve_max_detections 16
+    model = FedYOLOv3(cfg, torch.Generator().manual_seed(0)).to(dev).eval()
+    imgs, _ = synthetic.scene_images(np.random.default_rng(7), SCENES + 8, IMG, cfg.vocab_size)
+    return cfg, fed, model, imgs
+
+
+def served_nms_operands(model, batch, fed):
+    """The keep-mask kernel's operands in a served batch: (boxes_s (8, 16, 4),
+    valid_s (8, 16)), score-sorted as ``core.detection`` hands them over."""
+    from repro_torch.core import detection
+    from repro_torch.kernels import ref
+
+    with torch.inference_mode():
+        _, scores_k, _, shifted = detection.candidates(model, batch, fed.serve_max_detections)
+        _, boxes_s, valid_s = ref.sort_by_score(shifted, scores_k, detection.SCORE_THRESH)
+    return boxes_s, valid_s
+
+
+def served_nms(boxes_s, valid_s, card: str) -> dict:
+    """K3 at the served shape on the served operands: bitwise against the
+    plain version; kernel ms (CUDA events), device ms (profiler), plain ms,
+    the bound, and the card's launch floor with the share of it reached."""
+    from repro_torch.kernels import detect, ref
+
+    keep_k = detect.nms_keep(boxes_s, valid_s, 0.5)
+    keep_p = ref.nms_keep(boxes_s, valid_s, 0.5)
+    torch.cuda.synchronize()
+    check(same_bits(keep_k, keep_p), "served-shape keep mask: kernel != plain")
+    st = {"max_abs_err": float((keep_k - keep_p).abs().max())}
+    st["ms"] = time_ms(lambda: detect.nms_keep(boxes_s, valid_s, 0.5), reps=50)
+    st["plain_ms"] = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, 0.5), reps=50)
+    # "nms_" names every NMS kernel of the port, before and after the bitmask
+    st["device_ms"], st["device_ms_from"] = device_ms(lambda: detect.nms_keep(boxes_s, valid_s, 0.5),
+                                                      "nms_", reps=20)
+    st["bound_ms"], st["bound_by"] = scan_bound_ms(keep_k, boxes_s.shape[1])
+    st["library_ms"] = None  # no PyTorch call computes a greedy keep mask
+    st["launch_floor_ms"], st["launch_floor_ms_from"] = launch_floor_ms()
+    print(f"phase3 K3 at the served {tuple(valid_s.shape)}: kernel_ms={st['ms']:.5f} device_ms="
+          f"{st['device_ms']} ({st['device_ms_from']}) plain_ms={st['plain_ms']:.5f}; launch floor "
+          f"{st['launch_floor_ms']} ms ({st['launch_floor_ms_from']}), reached "
+          f"{st['launch_floor_ms'] / st['device_ms']:.0%} of it; byte/op bound "
+          f"{st['bound_ms']:.3e} ({st['bound_by']})  [{card}]", flush=True)
+    return st
 
 
 def phase4(dev, card: str) -> dict:
@@ -694,7 +799,7 @@ def profile_round(fn, card: str) -> None:
     # (phase5b's "forward" and "forward+backward" lines), not here
     families = {"K1 bucket_reduce": ("bucket_reduce_kernel",),
                 "K2 pairwise_iou": ("pairwise_iou_kernel",),
-                "K3 nms_keep": ("nms_keep_kernel",),
+                "K3 nms_keep": ("nms_bitmask_kernel", "nms_scan_kernel"),
                 "cuDNN convolutions": ("xmma", "cudnn", "fft", "implicit_convolve", "gemm",
                                        "conv")}
     total = sum(r[0] for r in rows)
@@ -1730,6 +1835,35 @@ def ties_rows() -> np.ndarray:
     return np.stack([row0, row1])
 
 
+def held_tree_past_capacity(dev, held) -> None:
+    """K12b's grouped launch over a synthetic tree of more leaves than its
+    table holds: f32 and bf16 outputs in turn, leaves of 0, 1, 3, 1023,
+    1025, 4096 and 100,003 elements, one q 1 byte off a 16-byte boundary
+    (the scalar path); one launch per TREE_CAPACITY non-empty leaves, every
+    leaf bitwise equal to the plain version."""
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    sizes = [1, 3, 1023, 1025, 0, 4096, 100_003]
+    qs, scales, dtypes = [], [], []
+    for i in range(kquant.TREE_CAPACITY * 2 + 5):
+        n = sizes[i % len(sizes)]
+        q = torch.randint(-127, 128, (n + 1,), generator=g, device=dev, dtype=torch.int8)
+        qs.append(q[1:] if i == 9 else q[:n])  # leaf 9 (n = 1023) starts 1 byte off 16
+        scales.append(torch.rand(-(-n // 1024), generator=g, device=dev) * 2.0 ** (i % 40 - 20))
+        dtypes.append((torch.float32, torch.bfloat16)[i % 2])
+    nonempty = sum(q.numel() > 0 for q in qs)
+    before = kquant.dequantize_tree.launches
+    outs = kquant.dequantize_tree(qs, scales, dtypes)
+    launched = kquant.dequantize_tree.launches - before
+    check(launched == -(-nonempty // kquant.TREE_CAPACITY),
+          f"a tree of {nonempty} non-empty leaves took {launched} launches")
+    for i, (q, sc, dt, out) in enumerate(zip(qs, scales, dtypes, outs)):
+        held("dequantize", out, ref.dequantize(q, sc, kquant.TREE_BLOCK, dt),
+             f"synthetic tree leaf {i} (n={q.numel()}, {dt})")
+
+
 def phase11a(dev, card: str) -> dict:
     """K5a, K5b, K12a and K12b against their plain versions on the card,
     bitwise; times and bounds at the main path's shape, and K12a/K12b over
@@ -1739,7 +1873,7 @@ def phase11a(dev, card: str) -> dict:
     from repro_torch.kernels import pack as kpack
     from repro_torch.kernels import quant as kquant
     from repro_torch.models import yolov3
-    from repro_torch.models.params import flatten_with_paths, init_params
+    from repro_torch.models.params import flatten_with_paths
 
     cfg = get_arch("fedyolov3")
     tpl = yolov3.template(cfg)
@@ -1747,16 +1881,7 @@ def phase11a(dev, card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(17)
     stats = {k: {"cases": 0, "max_abs_err": 0.0}
              for k in ("quantize_rows", "dequantize_rows", "quantize", "dequantize")}
-
-    def held(name, k, p, what):
-        torch.cuda.synchronize()
-        bits = {torch.bfloat16: torch.int16, torch.int8: torch.int8}.get(k.dtype, torch.int32)
-        check(k.dtype == p.dtype and k.shape == p.shape and torch.equal(k.view(bits), p.view(bits)),
-              f"{name} {what}: kernel != plain")
-        st = stats[name]
-        st["cases"] += 1
-        if k.numel():
-            st["max_abs_err"] = max(st["max_abs_err"], float((k.double() - p.double()).abs().max()))
+    held = bitwise_holder(stats)
 
     def rows(C, n):
         x = torch.randn((C, n), generator=g, device=dev) * 1e-3
@@ -1780,6 +1905,7 @@ def phase11a(dev, card: str) -> dict:
     cases += [(rows(2, stride_n + 100 * 1024 + 516), 1024, "")]
     cases += [(unaligned(rows(C, n)), block, " rows 4 bytes off 16") for C, n, block in QUANT_UNALIGNED]
     cases += [(wide_rows(C, n, g, dev), block, " wide") for C, n, block in QUANT_WIDE]
+    one_leaf = kquant.dequantize.launches
     for x, block, tag in cases:
         what = f"C={x.shape[0]} N={x.shape[1]} block={block}{tag}"
         q, sc = ops.quantize_rows(x, block=block)
@@ -1795,6 +1921,14 @@ def phase11a(dev, card: str) -> dict:
         qr1, sr1 = ops.quantize(x[0], block=block, impl="ref")
         held("quantize", q1, qr1, what + " row 0 q")
         held("quantize", s1, sr1, what + " row 0 scales")
+        # the single-leaf decode (K5b at C = 1, kernels/quant.py::dequantize)
+        # keeps its own path beside the tree's grouped launch
+        for dt in (torch.float32, torch.bfloat16):
+            held("dequantize", ops.dequantize(q1, s1, dtype=dt, block=block),
+                 ops.dequantize(q1, s1, dtype=dt, block=block, impl="ref"), f"{what} row 0 {dt}")
+    check(kquant.dequantize.launches - one_leaf == 2 * len(cases),
+          f"the single-leaf decode launched {kquant.dequantize.launches - one_leaf} times for "
+          f"{2 * len(cases)} calls")
     tq, ts = ops.quantize_rows(ties, block=256)
     check(float(ts[0, 0]) == 1.0 and tq[0, :4].tolist() == [-126, -126, -124, -124],
           f"ties: scale {float(ts[0, 0])}, q {tq[0, :4].tolist()} (half to even expected)")
@@ -1823,15 +1957,33 @@ def phase11a(dev, card: str) -> dict:
               f"{st['cases']} cases bitwise-equal  [{card}]", flush=True)
     del main, mq, ms_, cases
 
-    # K12a/K12b: the tree form over fedyolov3's whole tree, one launch per leaf
-    tree = init_params(tpl, torch.Generator(device=dev).manual_seed(0))
+    phase11a_tree(dev, card, held, stats)
+    return stats
+
+
+def phase11a_tree(dev, card: str, held, stats: dict) -> None:
+    """K12a/K12b through ``ops.quantize_tree`` / ``dequantize_tree`` over
+    fedyolov3's whole tree, K12a one launch per leaf and K12b one for the
+    tree, every leaf bitwise (``held``), and K12b past its table's capacity;
+    the tree times and bound go into ``stats["quantize"]`` and
+    ``stats["dequantize"]``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.models import yolov3
+    from repro_torch.models.params import flatten_with_paths, init_params
+
+    tree = init_params(yolov3.template(get_arch("fedyolov3")), torch.Generator(device=dev).manual_seed(0))
     leaves = list(flatten_with_paths(tree))
-    kquant.quantize.launches = kquant.dequantize.launches = 0
+    N = sum(x.numel() for _, x in leaves)
+    for counter in (kquant.quantize, kquant.dequantize, kquant.dequantize_tree):
+        counter.launches = 0
     qt = ops.quantize_tree(tree)
     back = ops.dequantize_tree(qt, tree)
     torch.cuda.synchronize()
-    launches = {"quantize": kquant.quantize.launches, "dequantize": kquant.dequantize.launches}
-    check(launches == {"quantize": len(leaves), "dequantize": len(leaves)},
+    launches = {"quantize": kquant.quantize.launches, "dequantize": kquant.dequantize_tree.launches,
+                "dequantize one leaf": kquant.dequantize.launches}
+    check(launches == {"quantize": len(leaves), "dequantize": 1, "dequantize one leaf": 0},
           f"tree round trip over {len(leaves)} leaves launched {launches}")
     qt_ref = ops.quantize_tree(tree, impl="ref")
     back_ref = ops.dequantize_tree(qt_ref, tree, impl="ref")
@@ -1840,28 +1992,47 @@ def phase11a(dev, card: str) -> dict:
     for (path, a), (_, b) in zip(flatten_with_paths(back), flatten_with_paths(back_ref)):
         held("dequantize", a, b, f"leaf {path}")
     err = max(float((a - x).abs().max()) for (_, a), (_, x) in zip(flatten_with_paths(back), leaves))
+    held_tree_past_capacity(dev, held)
     nbytes = sum(5 * x.numel() + 4 * -(-x.numel() // 1024) for _, x in leaves)
     bound = roofline(nbytes, 5 * N)
-    for name, kern, plain, kname in (
+    for name, kern, plain, kname, per_call in (
             ("quantize", lambda: ops.quantize_tree(tree), lambda: ops.quantize_tree(tree, impl="ref"),
-             "rowquant_"),  # both quantize kernels, rowquant_tile_kernel and rowquant_kernel
+             "rowquant_", len(leaves)),  # both quantize kernels, rowquant_tile_kernel and rowquant_kernel
             ("dequantize", lambda: ops.dequantize_tree(qt, tree),
-             lambda: ops.dequantize_tree(qt, tree, impl="ref"), "rowdequant_kernel")):
+             lambda: ops.dequantize_tree(qt, tree, impl="ref"), "treedequant_kernel", 1)):
         st = stats[name]
         st["ms"], st["plain_ms"] = time_ms(kern, reps=5), time_ms(plain, reps=3, warmup=1)
-        st["device_ms"], st["device_ms_from"] = device_ms(kern, kname, reps=1, launches=len(leaves))
-        check(name != "quantize" or st["device_ms_from"] == "profiler",
-              f"K12a's tree device time came from {st['device_ms_from']}, not the profiler")
+        st["device_ms"], st["device_ms_from"] = device_ms(kern, kname, reps=1 if per_call > 1 else 5,
+                                                          launches=per_call)
+        check(st["device_ms_from"] == "profiler",
+              f"K12's {name} tree device time came from {st['device_ms_from']}, not the profiler")
         st["bound_ms"], st["bound_by"] = bound
         st["library_ms"] = None
         st["launches"] = launches[name]
-        print(f"phase11a {name} (K12) over fedyolov3's tree ({len(leaves)} leaves, {N} values, one "
-              f"launch per leaf): tree kernel_ms={st['ms']:.4f} device_ms={st['device_ms']} "
-              f"({st['device_ms_from']}, all launches) plain_ms={st['plain_ms']:.4f} "
-              f"bound_ms={st['bound_ms']:.4f} ({st['bound_by']}); every leaf bitwise-equal; "
-              f"round-trip max error "
-              f"{err:.3e}  [{card}]", flush=True)
-    return stats
+        print(f"phase11a {name} (K12) over fedyolov3's tree ({len(leaves)} leaves, {N} values, "
+              f"{per_call} launch{'es' if per_call > 1 else ''} a tree): tree kernel_ms="
+              f"{st['ms']:.4f} device_ms={st['device_ms']} ({st['device_ms_from']}, all launches) "
+              f"plain_ms={st['plain_ms']:.4f} bound_ms={st['bound_ms']:.4f} ({st['bound_by']}), "
+              f"reached {st['bound_ms'] / st['device_ms']:.0%}; every leaf bitwise-equal; "
+              f"round-trip max error {err:.3e}  [{card}]", flush=True)
+
+
+def bitwise_holder(stats: dict):
+    """-> held(name, kernel out, plain out, what): fail unless the two are
+    bitwise equal (dtype, shape, bits); count the case and its max abs error
+    in ``stats[name]``."""
+
+    def held(name, k, p, what):
+        torch.cuda.synchronize()
+        bits = {torch.bfloat16: torch.int16, torch.int8: torch.int8}.get(k.dtype, torch.int32)
+        check(k.dtype == p.dtype and k.shape == p.shape and torch.equal(k.view(bits), p.view(bits)),
+              f"{name} {what}: kernel != plain")
+        st = stats[name]
+        st["cases"] += 1
+        if k.numel():
+            st["max_abs_err"] = max(st["max_abs_err"], float((k.double() - p.double()).abs().max()))
+
+    return held
 
 
 def phase11b(dev, card: str, buffer) -> None:
@@ -2039,9 +2210,7 @@ def main() -> None:
     from repro_torch import device as D
     from repro_torch.configs import get_arch
     from repro_torch.core import detection, serving
-    from repro_torch.core.rounds import FedConfig
-    from repro_torch.data import synthetic
-    from repro_torch.kernels import _build, detect, ops, ref
+    from repro_torch.kernels import _build, detect
     from repro_torch.models.yolov3 import FedYOLOv3
 
     # ---- phase 1: device and build -------------------------------------
@@ -2060,31 +2229,14 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 2: kernel vs plain on the card ---------------------------
-    n_cases = 0
-    for kind in KINDS:
-        for B, N in SHAPES:
-            boxes, scores, iou, sthr, mk = make_case(kind, B, N)
-            tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
-            kern = ops.nms(tb, ts, iou_thresh=iou, score_thresh=sthr, max_keep=mk)
-            plain = ops.nms(tb, ts, iou_thresh=iou, score_thresh=sthr, max_keep=mk, impl="ref")
-            torch.cuda.synchronize()
-            check(same_bits(kern, plain), f"nms {kind} B={B} N={N}: kernel != plain")
-            _, boxes_s, valid_s = ref.sort_by_score(tb, ts, sthr)
-            k_ms = time_ms(lambda: detect.nms_keep(boxes_s, valid_s, iou))
-            p_ms = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, iou))
-            n_cases += 1
-            print(f"phase2 {kind:14s} B={B:3d} N={N:5d} kept={int(kern.sum()):5d} bitwise-equal "
-                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}  [{card}]", flush=True)
+    n_cases = phase2(dev, card)
 
     # ---- phase 3: the detection service at full width -------------------
-    cfg = get_arch("fedyolov3")
-    fed = FedConfig(n_clients=1)  # serve_batch 8, serve_max_detections 16
-    model = FedYOLOv3(cfg, torch.Generator().manual_seed(0)).to(dev).eval()
+    cfg, fed, model, imgs = served_model(dev)
     n_params = sum(p.numel() for p in model.parameters())
     slot = serving.ModelSlot()
     slot.publish(1, model)
     n_req = REQUESTS_PER_CLIENT * CLIENTS
-    imgs, _ = synthetic.scene_images(np.random.default_rng(7), SCENES + 8, IMG, cfg.vocab_size)
     svc = serving.InferenceService(cfg, fed, slot, img_size=IMG, device=dev).start()
     results: dict[int, serving.ServeResult] = {}
     latencies: list[float] = []
@@ -2184,32 +2336,21 @@ def main() -> None:
         rows = sorted(((e.device_time_total / 5e3, e.count // 5, e.key) for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and e.device_time_total > 0), reverse=True)
         prof_note = "not measured (the profiler recorded no device kernel)"
-        nms_device_ms = None
         if rows:
             dev_ms = sum(r[0] for r in rows)
             prof_note = (f"device kernel time {dev_ms:.4f} ms per batch of {batch_ms:.4f} ms "
                          f"(idle share {1 - dev_ms / batch_ms:.3f})")
             for ms, cnt, key in rows[:10]:
                 print(f"phase3 profile {ms:9.4f} ms/batch x{cnt:3d}  {key[:100]}", flush=True)
-            nms_rows = [r for r in rows if "nms_keep_kernel" in r[2]]
-            check(len(nms_rows) == 1 and nms_rows[0][1] == 1,
-                  "the profile shows no single nms_keep_kernel launch per batch")
-            nms_device_ms = nms_rows[0][0]
-            print(f"phase3 profile nms_keep_kernel device time {nms_device_ms * 1e3:.2f} us "
+            nms_rows = [r for r in rows if "nms_" in r[2]]
+            check(len(nms_rows) == 1 and nms_rows[0][1] == 1 and "nms_bitmask_kernel" in nms_rows[0][2],
+                  "the profile shows no single nms_bitmask_kernel launch per batch")
+            print(f"phase3 profile nms_bitmask_kernel device time {nms_rows[0][0] * 1e3:.2f} us "
                   f"per batch", flush=True)
         print(f"phase3 profile: {prof_note}  [{card}]", flush=True)
 
-        # the kernel at the served shape, on the served inputs
-        _, scores_k, _, shifted = detection.candidates(model, batch, fed.serve_max_detections)
-        _, boxes_s, valid_s = ref.sort_by_score(shifted, scores_k, detection.SCORE_THRESH)
-        keep_k = detect.nms_keep(boxes_s, valid_s, 0.5)
-        keep_p = ref.nms_keep(boxes_s, valid_s, 0.5)
-        torch.cuda.synchronize()
-        check(same_bits(keep_k, keep_p), "served-shape scan: kernel != plain")
-        max_abs_err = float((keep_k - keep_p).abs().max())
-        nms_ms = time_ms(lambda: detect.nms_keep(boxes_s, valid_s, 0.5), reps=50)
-        plain_ms = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, 0.5), reps=50)
-        bound_ms, bound_by = scan_bound_ms(keep_k, boxes_s.shape[1])
+    # the kernel at the served shape, on the served inputs
+    nms_stats = served_nms(*served_nms_operands(model, batch, fed), card)
 
     lat = sorted(latencies)
     p50 = lat[len(lat) // 2] * 1e3
@@ -2221,15 +2362,15 @@ def main() -> None:
           f"padded-batch pin holds, CUDA NMS == plain NMS  [{card}]", flush=True)
     print(f"phase3 qps={n_req / wall:.2f} p50_ms={p50:.3f} p90_ms={p90:.3f} p99_ms={p99:.3f} "
           f"(p99 of {len(lat)} samples) program_ms_per_batch={batch_ms:.3f} "
-          f"nms_kernel_ms_per_batch={nms_ms:.5f} nms_plain_ms={plain_ms:.5f} "
-          f"nms_bound_ms={bound_ms:.3e} ({bound_by})  [{card}]", flush=True)
+          f"nms_kernel_ms_per_batch={nms_stats['ms']:.5f} nms_device_ms={nms_stats['device_ms']} "
+          f"nms_plain_ms={nms_stats['plain_ms']:.5f}  [{card}]", flush=True)
 
     # ---- phases 4 and 5: the training path's kernels and the path -------
     k_stats = phase4(dev, card)
-    floor_ms, floor_from = launch_floor_ms()
-    print(f"phase4 launch floor (a one-element kernel): device_ms={floor_ms} ({floor_from}); the "
-          f"launch-bound K3 (nms_keep) and K2 (pairwise_iou) are bound by the larger of it and "
-          f"their bytes  [{card}]", flush=True)
+    floor_ms, floor_from = nms_stats["launch_floor_ms"], nms_stats["launch_floor_ms_from"]
+    print(f"phase4 launch floor (a one-element kernel, phase 3): device_ms={floor_ms} "
+          f"({floor_from}); the launch-bound K3 (nms_keep) and K2 (pairwise_iou) are bound by the "
+          f"larger of it and their bytes  [{card}]", flush=True)
     train_launches = phase5(dev, card)
 
     # ---- phases 6 and 7: the uplink's kernels and its modes --------------
@@ -2267,9 +2408,7 @@ def main() -> None:
     def tc_keys(name):  # K9/K10: the FP32 units' bound, the SASS's tensor-core count
         return {k: k_stats[name][k] for k in ("bound_ms_fp32_units", "sass_hmma")}
 
-    k_stats["nms_keep"] = dict(max_abs_err=max_abs_err, ms=nms_ms, device_ms=nms_device_ms,
-                               device_ms_from="profiler", plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, cases=n_cases)
+    k_stats["nms_keep"] = dict(nms_stats, cases=n_cases)
     uplink = {path: f"--agg {path}, {uplink_launches[f'{path}_rounds']} rounds"
               for path in ("hier", "quant4", "secure")}
     lm = {k: dict(launches_training=lm_train[k]["launches"], training_path=lm_train[k]["main_path"],
@@ -2320,7 +2459,7 @@ def main() -> None:
               "per leaf (no runtime caller)"),
         entry("dequantize", "row_quant.cu", "quant.py:61", k_stats["dequantize"]["launches"],
               k_stats["dequantize"], main_path="ops.dequantize_tree over fedyolov3's tree, one "
-              "launch per leaf (no runtime caller)"),
+              "launch per tree (no runtime caller)"),
     ]
     import torch.distributed as dist
 

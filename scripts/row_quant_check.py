@@ -23,7 +23,6 @@ residency or a disagreement.
 """
 from __future__ import annotations
 
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,8 +52,7 @@ def inspect(lib) -> bool:
     ok = True
     for src, report in reports.items():
         print(src, "nvcc exit", report["rc"], *report["ptxas"], sep="\n  ", flush=True)
-        spills = [int(v) for ln in report["ptxas"] for v in re.findall(r"(\d+) bytes spill", ln)]
-        ok &= report["rc"] == 0 and not any(spills)
+        ok &= report["rc"] == 0 and not report["spill_bytes"]
     residency = {"rowquant_tile_kernel": lib.quantize_rows_tile_residency(),
                  "quant_reduce_tile_kernel<false>": lib.quant_reduce_tile_residency(0),
                  "quant_reduce_tile_kernel<true>": lib.quant_reduce_tile_residency(1)}

@@ -73,6 +73,7 @@ def _load_locked() -> ctypes.CDLL:
         "quantize_rows_launch": [p, p, p, i, ll, i, i, p],
         "quantize_rows_tile_residency": [],
         "dequantize_rows_launch": [p, p, p, i, i, ll, i, i, p],
+        "dequantize_tree_launch": [p, i, u, p],
         "grouped_reduce_launch": [p, p, p, i, i, ll, p],
         "masked_u32_sum_launch": [p, p, p, i, ll, p],
         "flash_attention_launch": [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), i, i, f, p],
@@ -126,7 +127,8 @@ def inspect(sources: tuple[str, ...]) -> dict[str, dict]:
     build's flags and ``-Xptxas -v``, all at once, into
     ``build/torch_ext/inspect/``, and read its SASS with the toolkit's
     ``cuobjdump``. -> {source: {"rc": nvcc's exit code, "ptxas": its lines
-    on registers, spills and errors, "mma": {kernel: number of HMMA and
+    on registers, spills and errors, "spill_bytes": the bytes of spill
+    stores and loads over its kernels, "mma": {kernel: number of HMMA and
     HGMMA instructions} or None where the toolkit has no cuobjdump}}."""
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -159,7 +161,8 @@ def inspect(sources: tuple[str, ...]) -> dict[str, dict]:
                     mma[name] = 0
                 elif name is not None and re.search(r"\bHG?MMA\.", ln):
                     mma[name] += 1
-        result[src] = {"rc": proc.returncode, "ptxas": lines, "mma": mma}
+        spill_bytes = sum(int(v) for ln in lines for v in re.findall(r"(\d+) bytes spill", ln))
+        result[src] = {"rc": proc.returncode, "ptxas": lines, "spill_bytes": spill_bytes, "mma": mma}
     return result
 
 

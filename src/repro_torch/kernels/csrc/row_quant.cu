@@ -5,9 +5,10 @@
 // body _rowquant_kernel) and ::dequantize_rows (K5b, body
 // _rowdequant_kernel), and the legacy block quantizers
 // src/repro/kernels/quant.py::quantize (K12a, body _quant_kernel) and
-// ::dequantize (K12b, body _dequant_kernel). K12a/K12b quantize one flat
-// leaf: they are K5a/K5b at C = 1. The wrappers (kernels/pack.py and
-// kernels/quant.py) validate the operands and allocate the outputs.
+// ::dequantize (K12b, body _dequant_kernel). K12a/K12b on one flat leaf are
+// K5a/K5b at C = 1; K12b over a tree has a kernel of its own. The wrappers
+// (kernels/pack.py and kernels/quant.py) validate the operands and allocate
+// the outputs.
 //
 // Semantics: x is a (C, N) f32 row buffer, cut per row into scale blocks of
 // `block` elements (the ragged tail of the last block reads as 0 and is not
@@ -59,7 +60,10 @@
 //
 // Dequantize is elementwise: one thread per four elements, a 4-byte load of
 // q, its block's scale through the read-only cache, one 16-byte (f32) or
-// 8-byte (bf16) store.
+// 8-byte (bf16) store. K12b over a whole tree (kernels/ops.py::
+// dequantize_tree) is one launch of the tree dequantizer (treedequant_kernel,
+// below) for up to 64 leaves, where one launch a leaf left 15 of
+// fedyolov3's 19 leaves near the card's launch floor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +78,10 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kMaxChunks = 4;  // float4 chunks per thread: block <= 4096
 constexpr int kDequantThreads = 256;
+constexpr int kTreeCapacity = 64;  // leaves a tree launch takes (kernels/quant.py::TREE_CAPACITY)
+constexpr int kTreeBlock = 1024;   // the tree's scale block: one unit of work
+constexpr int kTreeWarps = 8;      // warps a CTA of the tree dequantizer
+constexpr int kTreeCtasPerSm = 4;  // its persistent grid: 32 warps a SM
 
 // q of the quotient v = x / scale
 __device__ __forceinline__ signed char clip_q(float v) {
@@ -264,6 +272,93 @@ cudaError_t dequant_launch(const signed char* q, const float* scales, void* out,
   return cudaGetLastError();
 }
 
+// The tree dequantizer (K12b over a whole tree): one launch decodes up to
+// kTreeCapacity leaves, each a flat q (n,) int8 with ceil(n / 1024) scales,
+// into its own output in float32 or bfloat16. A unit of work is one
+// (leaf, scale block) pair; the units of all leaves form one flat sequence,
+// leaf after leaf (a leaf's first unit is the prefix sum of its
+// predecessors' blocks), which the persistent grid's warps walk with a stride
+// of every warp of the grid. A warp finds its unit's leaf by a binary search
+// of the table, which the launch passes by value as a __grid_constant__
+// kernel parameter: no copy to the card, no sync. Lane l decodes the unit's
+// elements 4 (l + 32 k), k = 0..7: eight 4-byte int8 loads, all issued
+// before any store, then one 16-byte (float32) or 8-byte (bfloat16) store
+// each, so every load and store of the warp is one contiguous run (K5b's
+// access pattern). A lane's 16-byte int8 load puts its four 16-byte float32
+// stores 64 bytes apart: on the H100 that first design took longer than the
+// 19 per-leaf launches it replaced (PERF.md §6). A leaf whose q or
+// output is not 16-byte aligned, and the ragged tail past n, take a scalar
+// path with the same arithmetic.
+struct TreeLeaf {  // laid out as kernels/quant.py::TreeLeaf (ctypes)
+  const signed char* q;
+  const float* scales;
+  void* out;
+  long long n;      // elements, >= 1
+  long long unit0;  // first unit: the blocks of the leaves before it
+  int dtype;        // 0 = float32, 1 = bfloat16
+  int pad;
+};
+
+struct TreeTable {
+  TreeLeaf leaf[kTreeCapacity];
+  int leaves;
+  unsigned units;
+};
+static_assert(sizeof(TreeTable) <= 4096, "a kernel parameter holds at most 4 KB");
+
+__device__ __forceinline__ float q_byte(int word, int b) {  // byte b of four packed int8
+  return static_cast<float>(static_cast<signed char>(word >> (8 * b)));
+}
+
+template <typename T>
+__device__ __forceinline__ void tree_unit(const TreeLeaf& leaf, long long start, float s, int lane) {
+  const signed char* q = leaf.q;
+  T* out = static_cast<T*>(leaf.out);
+  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  long long e[8];
+  bool whole[8];
+  int raw[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    e[k] = start + 4 * (lane + 32 * k);
+    whole[k] = vec && e[k] + 4 <= leaf.n;
+    raw[k] = whole[k] ? __ldg(reinterpret_cast<const int*>(q + e[k])) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (whole[k]) {
+      store4(out + e[k], q_byte(raw[k], 0) * s, q_byte(raw[k], 1) * s, q_byte(raw[k], 2) * s,
+             q_byte(raw[k], 3) * s);
+    } else {
+      for (long long i = e[k]; i < e[k] + 4 && i < leaf.n; ++i)
+        store1(out + i, static_cast<float>(q[i]) * s);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTreeWarps * 32, kTreeCtasPerSm)
+treedequant_kernel(const __grid_constant__ TreeTable table) {
+  const int lane = threadIdx.x & 31;
+  const unsigned stride = gridDim.x * kTreeWarps;
+  for (unsigned u = blockIdx.x * kTreeWarps + (threadIdx.x >> 5); u < table.units; u += stride) {
+    int lo = 0, hi = table.leaves - 1;  // the last leaf whose first unit is <= u
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (table.leaf[mid].unit0 <= u)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    const TreeLeaf& leaf = table.leaf[lo];
+    const long long block = u - leaf.unit0;
+    const float s = __ldg(leaf.scales + block);
+    if (leaf.dtype == 0)
+      tree_unit<float>(leaf, block * kTreeBlock, s, lane);
+    else
+      tree_unit<__nv_bfloat16>(leaf, block * kTreeBlock, s, lane);
+  }
+}
+
 bool bad_shape(int n_rows, int block) {
   return block < 4 || block % 4 || block > kMaxChunks * kMaxThreads * 4 || n_rows < 1 ||
          n_rows > 65535;
@@ -324,6 +419,29 @@ extern "C" int dequantize_rows_launch(const signed char* q, const float* scales,
       dtype == 0 ? dequant_launch<float>(q, scales, out, n_rows, n, block, n_blocks, vec4, s)
                  : dequant_launch<__nv_bfloat16>(q, scales, out, n_rows, n, block, n_blocks, vec4, s);
   return static_cast<int>(err);
+}
+
+// The tree dequantizer: `leaves` (1..kTreeCapacity) table rows in unit
+// order, `units` = the last row's unit0 + ceil(n / 1024) < 2^32; the wrapper
+// (kernels/quant.py::dequantize_tree) builds the rows and validates every
+// operand. Copies the rows into the kernel's parameter and launches a
+// persistent grid of at most kTreeCtasPerSm CTAs a SM.
+extern "C" int dequantize_tree_launch(const void* rows, int leaves, unsigned units, void* stream) {
+  if (units == 0) return 0;
+  if (leaves < 1 || leaves > kTreeCapacity) return static_cast<int>(cudaErrorInvalidValue);
+  TreeTable table;  // TreeLeaf lives in the anonymous namespace: an extern "C" entry takes void*
+  for (int i = 0; i < leaves; ++i) table.leaf[i] = static_cast<const TreeLeaf*>(rows)[i];
+  table.leaves = leaves;
+  table.units = units;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned need = (units + kTreeWarps - 1) / kTreeWarps;
+  const unsigned cap = static_cast<unsigned>(sms) * kTreeCtasPerSm;
+  treedequant_kernel<<<need < cap ? need : cap, kTreeWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(table);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // CTAs of the whole-tile quantizer that fit on one SM at once (the launch

@@ -7,10 +7,11 @@ version ``kernels.ref.pairwise_iou`` for tensors on the CPU, one launch for
 the whole (batched) call.
 
 :func:`nms` is the reference's ``nms`` wrapper: a stable descending-score
-sort, one launch of the sequential keep-mask scan over every image of the
-batch, the ``max_keep`` cap and the scatter back to the caller's order.
-The scan, :func:`nms_keep`, is the hand-written CUDA kernel
-``csrc/nms.cu`` for a tensor on the card, and its plain version
+sort, one launch of the keep-mask kernel over every image of the batch, the
+``max_keep`` cap and the scatter back to the caller's order. The keep mask,
+:func:`nms_keep`, is the hand-written CUDA kernel ``csrc/nms.cu`` for a
+tensor on the card (an all-pairs IoU bitmask resolved by one warp up to
+1024 boxes an image, the sequential scan above), and its plain version
 ``kernels.ref.nms_keep`` for a tensor on the CPU. A CUDA tensor never takes
 the plain version: the kernel launches or the call raises.
 """

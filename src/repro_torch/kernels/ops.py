@@ -1,9 +1,9 @@
 """Kernel dispatch (port of ``repro/kernels/ops.py``): NMS, pairwise IoU, the
 fused transports (quant8 K4, grouped K6, quant4 K7, masked sum K8), the row
-quantizers (K5a/K5b) and the per-leaf block quantizers of a tree
-(K12a/K12b), flash attention (K9) and the Mamba2 SSD chunk scan (K10) with
-the full SSD around it, their trainable forms, and the per-leaf FedAvg of a
-client-stacked tree (K11).
+quantizers (K5a/K5b) and the block quantizers of a tree (K12a a launch per
+leaf, K12b one launch per tree), flash attention (K9) and the Mamba2 SSD
+chunk scan (K10) with the full SSD around it, their trainable forms, and the
+per-leaf FedAvg of a client-stacked tree (K11).
 
 ``impl="kernel"`` (the default) runs the kernel wrapper, which launches the
 CUDA kernel for a tensor on the card and its plain version for one on the
@@ -278,13 +278,19 @@ def quantize_tree(tree: PyTree, *, impl: str = "kernel") -> PyTree:
 
 
 def dequantize_tree(qtree: PyTree, like: PyTree, *, impl: str = "kernel") -> PyTree:
-    """Inverse of :func:`quantize_tree`: each ``{"q", "scales"}`` leaf
-    decoded by one K12b launch in its ``like`` leaf's dtype and shape."""
+    """Inverse of :func:`quantize_tree`: every ``{"q", "scales"}`` leaf
+    decoded in its ``like`` leaf's dtype and shape, by one K12b launch for
+    the whole tree (up to ``kernels.quant.TREE_CAPACITY`` leaves a launch)."""
     from repro_torch.models.params import flatten_with_paths, unflatten
 
     flat = dict(flatten_with_paths(qtree))
-    out = {}
-    for path, x in flatten_with_paths(like):
-        out[path] = dequantize(flat[f"{path}/q"], flat[f"{path}/scales"], dtype=x.dtype,
-                               impl=impl).reshape(x.shape)
-    return unflatten(like, out)
+    likes = list(flatten_with_paths(like))
+    qs = [flat[f"{path}/q"] for path, _ in likes]
+    scales = [flat[f"{path}/scales"] for path, _ in likes]
+    if impl == "kernel":
+        outs = _quant.dequantize_tree(qs, scales, [x.dtype for _, x in likes])
+    elif impl == "ref":
+        outs = [ref.dequantize(q, s, _quant.TREE_BLOCK, x.dtype) for q, s, (_, x) in zip(qs, scales, likes)]
+    else:
+        raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    return unflatten(like, {path: o.reshape(x.shape) for (path, x), o in zip(likes, outs)})

@@ -6,7 +6,11 @@ forced plain version (``impl="ref"``) must equal the reference's Pallas
 ``nms`` (interpret mode) and its NumPy oracle ``ref.nms_np`` bit for bit
 (tolerance: none, compared as int32 bit patterns). The cases mirror
 tests/test_detect.py's NMS goldens and the cases ``chip_smoke.py`` holds the
-CUDA kernel to on the card. The pairwise IoU's plain version must equal the
+CUDA kernel to on the card, among them boxes whose IoU lands exactly on the
+threshold. A NumPy model of the card kernel's algorithm (every pair's IoU
+packed into 32-bit words, then the ordered resolve word by word) is held
+bitwise against the plain scan and the reference's oracle, at word edges
+too, and pinned to the no-cascade rule. The pairwise IoU's plain version must equal the
 reference's Pallas ``pairwise_iou`` (interpret mode) and its oracle
 ``ref.pairwise_iou_np`` bit for bit too, IoU and GIoU, degenerate boxes
 included. The cases that run a CUDA kernel itself against its plain version
@@ -20,10 +24,12 @@ import jax.numpy as jnp
 
 from repro.kernels import detect as jdetect
 from repro.kernels import ref as jref
-from repro_torch.kernels import detect, ops
+from repro_torch.kernels import detect, ops, ref
 
 SHAPES = [(1, 1), (8, 16), (64, 100), (4, 1024)]
-KINDS = ["random", "ties", "degenerate", "all_suppressed", "max_keep", "score_thresh"]
+KINDS = ["random", "ties", "degenerate", "all_suppressed", "max_keep", "score_thresh", "iou_ties"]
+# N at the card kernel's 32-bit word edges: one box past one and two words
+WORD_EDGES = [(3, 33), (2, 65)]
 
 
 def make_case(kind: str, B: int, N: int, seed: int = 0):
@@ -52,12 +58,104 @@ def make_case(kind: str, B: int, N: int, seed: int = 0):
         mk = max(1, N // 3)
     elif kind == "score_thresh":
         sthr = 0.5
+    elif kind == "iou_ties":  # boxes 1/4 wide on a 1/16 grid: 2/16 apart, IoU is f32(1/3)
+        xy = rng.integers(4, 13, (B, N, 2)) / 16.0
+        wh = np.full((B, N, 2), 0.25)
+        iou = 1.0 / 3.0
     boxes = np.concatenate([xy, wh], -1).astype(np.float32)
     return boxes, scores.astype(np.float32), iou, sthr, mk
 
 
 def bits(x) -> np.ndarray:
     return np.asarray(x, np.float32).view(np.int32)
+
+
+def _words(flags: np.ndarray) -> np.ndarray:
+    """(..., N) bools -> (..., ceil(N/32)) uint32, bit j % 32 of word j // 32."""
+    n = flags.shape[-1]
+    padded = np.zeros(flags.shape[:-1] + (-(-n // 32) * 32,), np.uint64)
+    padded[..., :n] = flags
+    shifted = padded.reshape(flags.shape[:-1] + (-1, 32)) << np.arange(32, dtype=np.uint64)
+    return shifted.sum(-1).astype(np.uint32)
+
+
+def bitmask_keep(boxes_s: np.ndarray, valid_s: np.ndarray, iou_thresh: float):
+    """NumPy model of ``csrc/nms.cu::nms_bitmask_kernel`` -> (keep_s (B, N)
+    f32, count of pairs whose IoU equals the threshold). Per image: the
+    corners, every pair's IoU (the reference's f32 ops in its order), bit j of
+    row i's word j // 32 set where j > i and IoU > thresh; then word k's
+    chain (row 32k + r, live and not yet suppressed, ORs in its word k) and
+    the rows of word k still kept OR their later words in."""
+    f = np.float32
+    B, N = valid_s.shape
+    keep = np.empty((B, N), np.float32)
+    ties = 0
+    for b in range(B):
+        bx = boxes_s[b]
+        x1, y1 = bx[:, 0] - bx[:, 2] * f(0.5), bx[:, 1] - bx[:, 3] * f(0.5)
+        x2, y2 = bx[:, 0] + bx[:, 2] * f(0.5), bx[:, 1] + bx[:, 3] * f(0.5)
+        area = np.maximum((x2 - x1) * (y2 - y1), f(0.0))
+        ix = np.maximum(np.minimum(x2[:, None], x2[None]) - np.maximum(x1[:, None], x1[None]), f(0.0))
+        iy = np.maximum(np.minimum(y2[:, None], y2[None]) - np.maximum(y1[:, None], y1[None]), f(0.0))
+        inter = np.maximum(ix * iy, f(0.0))
+        iou = inter / np.maximum((area[:, None] + area[None]) - inter, f(1e-9))
+        later = np.arange(N)[None] > np.arange(N)[:, None]
+        ties += int((later & (iou == f(iou_thresh))).sum())
+        mask = _words(later & (iou > f(iou_thresh)))  # (N, words)
+        live = _words(valid_s[b] > 0)
+        sup = np.zeros(mask.shape[1], np.uint32)
+        for k in range(mask.shape[1]):
+            s, lv = int(sup[k]), int(live[k])
+            for r in range(min(32, N - 32 * k)):
+                if lv >> r & 1 and not s >> r & 1:
+                    s |= int(mask[32 * k + r, k])
+            sup[k] = s
+            for r in range(32):
+                if (lv & ~s) >> r & 1:
+                    sup[k + 1:] |= mask[32 * k + r, k + 1:]
+        suppressed = (sup[np.arange(N) // 32] >> (np.arange(N) % 32).astype(np.uint32)) & 1
+        keep[b] = np.where(suppressed == 1, f(0.0), valid_s[b])
+    return keep, ties
+
+
+@pytest.mark.parametrize("B,N", SHAPES + WORD_EDGES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_bitmask_model_equals_the_scan_and_the_reference(kind, B, N):
+    """The card kernel's mask-and-resolve algorithm, modelled in NumPy, keeps
+    exactly what the plain scan keeps (its operands from the port's sort),
+    and after the cap and scatter what the reference's oracle keeps."""
+    boxes, scores, iou, sthr, mk = make_case(kind, B, N)
+    order, boxes_s, valid_s = ref.sort_by_score(torch.from_numpy(boxes), torch.from_numpy(scores), sthr)
+    model, ties = bitmask_keep(boxes_s.numpy(), valid_s.numpy(), iou)
+    np.testing.assert_array_equal(bits(model), bits(ref.nms_keep(boxes_s, valid_s, iou).numpy()))
+    full = ref.finish(order, torch.from_numpy(model), mk)
+    np.testing.assert_array_equal(bits(full.numpy()), bits(jref.nms_np(boxes, scores, iou, sthr, mk)))
+    if kind == "iou_ties" and N >= 16:
+        assert ties > 0  # the strict `>` decides some pair
+
+
+def test_bitmask_model_keeps_no_cascade_across_a_word_edge():
+    """Box 0 suppresses box 31, which overlaps box 32 more than the threshold
+    but, suppressed, must not suppress it: 32 stays kept. The same inside
+    one word: 33 suppresses 34, and 35 stays kept. The other boxes are
+    specks far apart."""
+    N = 40
+    boxes = np.zeros((1, N, 4), np.float32)
+    boxes[0, :, 0] = np.linspace(0.02, 0.98, N)
+    boxes[0, :, 1] = 0.05
+    boxes[0, :, 2:] = 0.001
+    for first, y in ((0, 0.5), (33, 0.8)):
+        boxes[0, first] = [0.30, y, 0.2, 0.2]
+    for second, third, y in ((31, 32, 0.5), (34, 35, 0.8)):
+        boxes[0, second] = [0.35, y, 0.2, 0.2]  # IoU 0.6 with the first and the third
+        boxes[0, third] = [0.40, y, 0.2, 0.2]  # IoU 1/3 with the first
+    valid = np.ones((1, N), np.float32)
+    want = valid.copy()
+    want[0, [31, 34]] = 0.0
+    model, _ = bitmask_keep(boxes, valid, 0.5)
+    np.testing.assert_array_equal(model, want)
+    np.testing.assert_array_equal(ref.nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                               0.5).numpy(), want)
 
 
 @pytest.mark.parametrize("B,N", SHAPES)
@@ -107,7 +205,8 @@ def test_unknown_impl_raises():
 def test_cuda_kernel_equals_plain_version_on_card(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for B, N in SHAPES:
+    # the bitmask kernel up to N = 1024 (word edges, eval's N = 64), the scan above
+    for B, N in SHAPES + WORD_EDGES + [(8, 64), (2, 2048)]:
         boxes, scores, iou, sthr, mk = make_case(kind, B, N)
         tb, ts = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
         kern = ops.nms(tb, ts, iou_thresh=iou, score_thresh=sthr, max_keep=mk)

@@ -202,6 +202,61 @@ def test_quantize_tree_round_trips_a_param_tree_like_the_reference():
         assert torch.equal(a, b)
 
 
+# leaves of the tree dequantizer's tests: one element, a ragged few, one short
+# of and one past a scale block, an empty leaf, several whole blocks
+TREE_SIZES = [1, 3, 1023, 1025, 0, 4096, 5000]
+
+
+def test_tree_launch_plan_counts_units_and_splits_past_capacity():
+    """kernels.quant.tree_launches: a leaf takes ceil(n / 1024) units (its
+    scale blocks), numbered from 0 in each launch, leaf after leaf; an empty
+    leaf takes no row; a launch holds at most TREE_CAPACITY rows; dtype codes
+    are csrc/row_quant.cu's (0 float32, 1 bfloat16)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    plan = kquant.tree_launches(TREE_SIZES, [f32, bf16] * 3 + [f32])
+    assert plan == [([(0, 0, 0), (1, 1, 1), (2, 0, 2), (3, 1, 3), (5, 1, 5), (6, 0, 9)], 14)]
+    assert kquant.tree_launches([], []) == [] and kquant.tree_launches([0, 0], [f32, f32]) == []
+    cap = kquant.TREE_CAPACITY
+    ns = [1 + (i % 3) * 1024 for i in range(2 * cap + 3)]  # 1, 1025, 2049 elements in turn
+    ns[cap] = 0  # an empty leaf at the first launch's edge takes no row
+    plan = kquant.tree_launches(ns, [bf16] * len(ns))
+    assert [len(rows) for rows, _ in plan] == [cap, cap, 2]
+    leaves = [i for rows, _ in plan for i, _, _ in rows]
+    assert leaves == [i for i, n in enumerate(ns) if n]
+    for rows, units in plan:
+        blocks = [-(-ns[i] // kquant.TREE_BLOCK) for i, _, _ in rows]
+        assert [u for _, _, u in rows] == list(np.cumsum([0] + blocks[:-1]))
+        assert units == sum(blocks) and all(code == 1 for _, code, _ in rows)
+    with pytest.raises(ValueError):
+        kquant.tree_launches([1, 2], [f32])
+
+
+def test_dequantize_tree_on_the_cpu_matches_the_reference_per_leaf():
+    """The tree dequantizer on CPU tensors takes the plain version per leaf
+    (no launch counted) and equals the reference's Pallas ``dequantize``
+    (interpret mode) leaf by leaf, bitwise, in float32 and bfloat16."""
+    rng = np.random.default_rng(5)
+    qs = [t(rng.integers(-127, 128, n).astype(np.int8)) for n in TREE_SIZES]
+    scales = [t(rng.random(-(-n // 1024)).astype(np.float32)) for n in TREE_SIZES]
+    dtypes = [(torch.float32, torch.bfloat16)[i % 2] for i in range(len(qs))]
+    before = kquant.dequantize_tree.launches
+    outs = kquant.dequantize_tree(qs, scales, dtypes)
+    assert kquant.dequantize_tree.launches == before
+    for q, s, dtype, out in zip(qs, scales, dtypes, outs):
+        assert out.dtype == dtype and out.shape == q.shape
+        if not q.numel():
+            continue
+        jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        want = jquant.dequantize(jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), dtype=jdtype,
+                                 interpret=True)
+        assert same_bits(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32).numpy(),
+                         np.asarray(want).view(np.int16 if dtype == torch.bfloat16 else np.int32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kquant.dequantize_tree(qs[:1], scales[:1], [torch.float16])
+    with pytest.raises(ValueError, match="1-D"):
+        kquant.dequantize_tree([qs[0][None]], scales[:1], [torch.float32])
+
+
 @pytest.mark.parametrize("C,N,block", [(3, 2500, 256), (4, 5001, 1024), (70, 300, 128)])
 def test_gathered_decode_reduce_equals_the_fused_transport(C, N, block):
     """dequant_reduce_ref over quantize_rows' payload == quant8_mean_ref (the
@@ -322,3 +377,40 @@ def test_row_and_block_quantizer_kernels_equal_plain_versions_on_card(case):
     else:
         for C, N in [(3, 65536 + 12), (2, 1 << 20), (3, 5001)]:
             _hold_on_card(t(_wide_rows(C, N, seed=N)).to(dev), 1024)
+
+
+@pytest.mark.cuda
+def test_tree_dequantizer_kernel_equals_the_plain_version_on_card():
+    """K12b's grouped launch on the card against ``impl="ref"``, bitwise: a
+    reduced fedyolov3 tree through ``ops.dequantize_tree`` in one launch, and
+    a tree of more leaves than one launch's table, f32 and bf16 in turn,
+    empty, ragged and 1-byte-misaligned leaves, one launch per
+    TREE_CAPACITY non-empty leaves."""
+    dev = _card()
+    cfg = get_arch("fedyolov3").reduced()
+    from repro_torch.models import yolov3
+    tree = params.init_params(yolov3.template(cfg), torch.Generator().manual_seed(0))
+    tree = params.map_tree(lambda x: x.to(dev), tree)
+    qt = ops.quantize_tree(tree)
+    before = kquant.dequantize_tree.launches
+    back = ops.dequantize_tree(qt, tree)
+    assert kquant.dequantize_tree.launches == before + 1
+    want = ops.dequantize_tree(qt, tree, impl="ref")
+    for (_, a), (_, b) in zip(params.flatten_with_paths(back), params.flatten_with_paths(want)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    rng = np.random.default_rng(8)
+    n_leaves = 2 * kquant.TREE_CAPACITY + 5
+    sizes = [TREE_SIZES[i % len(TREE_SIZES)] for i in range(n_leaves)]
+    qs = [t(rng.integers(-127, 128, n + 1).astype(np.int8)).to(dev) for n in sizes]
+    qs = [q[1:] if i == 9 else q[:-1] for i, q in enumerate(qs)]  # leaf 9 sits 1 byte off 16
+    scales = [t(rng.random(-(-n // 1024)).astype(np.float32)).to(dev) for n in sizes]
+    dtypes = [(torch.float32, torch.bfloat16)[i % 2] for i in range(n_leaves)]
+    before = kquant.dequantize_tree.launches
+    outs = kquant.dequantize_tree(qs, scales, dtypes)
+    torch.cuda.synchronize()
+    nonempty = sum(n > 0 for n in sizes)
+    assert kquant.dequantize_tree.launches - before == -(-nonempty // kquant.TREE_CAPACITY)
+    for q, s, dtype, out in zip(qs, scales, dtypes, outs):
+        plain = ops.dequantize(q, s, dtype=dtype, impl="ref")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert out.shape == q.shape and torch.equal(out.view(bits), plain.view(bits))
