@@ -176,6 +176,25 @@ recorded every launch made; where no trace does, the kernels line says
    clients' batches of 8 at 416 as one batch of 24, 3 rounds: finite
    losses, peak device memory under 75 GiB, ms per round; and one round at
    img 64 on the card against the host at rtol 1e-4 / atol 1e-5.
+12. The async control plane (``core/async_engine.py``). (a) Buffered eq6 at
+   fedyolov3's full width (img 416, sgd 1e-3, batch 8, C 3, a flush every 2
+   landings, alpha 0.5, max_staleness 2, uplink spread 0.5, seed 4): a
+   full-buffer flush equals the sync round on the card bitwise (params,
+   opt, agg state, loss); 6 flushes with a staleness-1 landing and a drop,
+   every row in flight bitwise across each flush, K1 once a flush (the
+   counter, and a profile of 2 more flushes); the launcher's ``--mode
+   async`` for 3 flushes, K1 once each. (b) Streaming dense, C 16, a flush
+   every 8, max_staleness 4, batch (16, 1, 8, 416, 416, 3), against its
+   buffered twin from one seed: ring row 0 is make_state's row 0 bitwise,
+   participants, staleness and drops identical, the global within 1e-5 of
+   its largest magnitude (``tests/test_stream_async.py``'s tolerance); K1
+   never in the streaming flushes, once a twin flush. (c) The arrival
+   engine on the reduced qwen3 (the wire's default run meta) under the
+   dense and quant8 codecs: a recorded dispatch/land sequence (5 flushes,
+   a drop) replays through a fresh engine bitwise (dense) or within 1e-5
+   (quant8), K1 once a landing flush in both, and ``export_state`` /
+   ``import_state`` round-trips bitwise. Prints ms per flush (CUDA events)
+   and peak device memory of each engine.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -303,6 +322,33 @@ ROWQ_RAGGED = [(9, 5001, 1024), (1, 4097, 1024), (5, 3333, 128), (2, 4096 * 3 + 
                (3, 1030, 1024), (1, 77, 64), (17, 40_000, 1024)]
 COMPACT_ROUNDS, COMPACT_BUDGET = 3, 2
 FEDSGD_ROUNDS, FEDSGD_PEAK_GIB = 3, 75.0
+# phase 12: the async control plane at fedyolov3's full width with
+# examples/fed_yolo.py's settings (sgd 1e-3, batch 8, img 416). 12a:
+# buffered eq6, a flush every 2 of 3 landings, alpha 0.5, max_staleness 2,
+# uplinks spread 0.5; seed 4's draws land an update at staleness 1 and drop
+# one within the 6 flushes (the event plane is host NumPy, the same on any
+# machine). 12b: streaming dense against its buffered twin, 16 clients, a
+# flush every 8, max_staleness 4 (a ring of 5 rows), stateless sgd
+ASYNC_SEED, ASYNC_FLUSHES, ASYNC_LAUNCHER_FLUSHES = 4, 6, 3
+ASYNC_BUFFERED = dict(n_clients=3, buffer_size=2, staleness_alpha=0.5, max_staleness=2)
+STREAM_FLUSHES, STREAM_TOL = 4, 1e-5
+ASYNC_STREAM = dict(n_clients=16, buffer_size=8, max_staleness=4)
+# 12c: the arrival engine and the replay on the wire's default run meta
+# (the reference's harness.make_meta(reduced=True)) under dense and quant8;
+# (kind, client, t) or (kind, client, seq, t): 5 flushes, staleness up to 2
+# kept, a landing at staleness 4 dropped
+REPLAY_META = dict(arch="qwen3-1.7b", reduced=True, overrides={}, n_clients=4, buffer_size=2,
+                   max_staleness=2, staleness_alpha=0.5, aggregation="dense", local_steps=1,
+                   batch=2, seq=16, seed=0, lr=0.05, transport="socket", wire_codec="dense",
+                   quant_block=1024, queue_cap=0, heartbeat_s=0.2, heartbeat_timeout_s=2.0)
+REPLAY_PLAN = [("dispatch", c, 0.0) for c in range(4)] + [
+    ("land", 0, 0, 1.0), ("land", 1, 0, 1.2), ("dispatch", 0, 1.3), ("dispatch", 1, 1.3),
+    ("land", 0, 1, 2.0), ("land", 1, 1, 2.2), ("dispatch", 0, 2.3), ("dispatch", 1, 2.3),
+    ("land", 2, 0, 3.0), ("land", 0, 2, 3.2), ("dispatch", 2, 3.3), ("dispatch", 0, 3.3),
+    ("land", 1, 2, 4.0), ("land", 0, 3, 4.2), ("land", 3, 0, 4.5),
+    ("dispatch", 0, 4.6), ("dispatch", 1, 4.6),
+    ("land", 3, 1, 5.0), ("land", 2, 1, 5.2)]
+REPLAY_QUANT_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -2204,6 +2250,288 @@ def phase11d(dev, card: str) -> None:
           f"{round_ms:.3f}; peak device memory {peak:.2f} GiB  [{card}]", flush=True)
 
 
+def inflight_unchanged(eng, before: torch.Tensor, old_global: torch.Tensor, version,
+                       staged: list[int]) -> int:
+    """Check that a buffered flush left every row in flight as it was, bit
+    for bit (a client dropped in the window: the global it was redispatched
+    with) -> how many were redispatched."""
+    redispatched = 0
+    for c in range(eng.fed.n_clients):
+        if c in staged:
+            continue
+        moved = eng.dispatch_version[c] != version[c]
+        redispatched += int(moved)
+        check(same_bits(eng.state["params"][c], old_global if moved else before[c]),
+              f"phase12 the flush changed client {c}'s row in flight")
+    return redispatched
+
+
+def timed_flush(step) -> tuple[object, float]:
+    """One flush between CUDA events -> (its record, ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rec = step()
+    end.record()
+    end.synchronize()
+    return rec, start.elapsed_time(end)
+
+
+def phase12a(dev, card: str) -> dict:
+    """Buffered eq6 at full width: a full buffer against the sync round,
+    bitwise; 6 flushes with stragglers (in-flight rows bitwise, K1 once a
+    flush); the launcher's ``--mode async``. -> K1's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import pack
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    fed = FedConfig(aggregation="eq6", topn=4, client_axis="data", data_axis=None, mode="async",
+                    agg_impl="kernel", **ASYNC_BUFFERED)
+    fed_s = dataclasses.replace(fed, mode="sync")
+    timing = ae.TimingModel(uplink_spread=0.5)
+    gen, _, _ = detection_suite(cfg, fed_s, batch=TRAIN_BATCH, img_size=IMG)
+    batches = [next(gen) for _ in range(ASYNC_FLUSHES)]
+
+    # a full buffer: the flush is the sync round, bit for bit
+    full = ae.BufferedAsyncEngine(cfg, dataclasses.replace(fed, buffer_size=fed.n_clients),
+                                  sgd(1e-3), seed=ASYNC_SEED, timing=timing, device=dev)
+    state = rounds.make_state(cfg, fed_s, sgd(1e-3), rounds.seed_generator(cfg, ASYNC_SEED, dev),
+                              dev)
+    rec = full.step_round(batches[0])
+    state, m = rounds.build_fed_round(cfg, fed_s, sgd(1e-3))(
+        state, rounds.to_device(batches[0], dev), rounds.uniform_weights(fed.n_clients).to(dev))
+    check(rec.staleness == [0] * fed.n_clients and rec.loss == float(m["loss"]),
+          f"phase12a full-buffer flush loss {rec.loss!r} != sync round loss {float(m['loss'])!r}")
+    for name, a, b in [("params", full.state["params"], state["params"])] + [
+            (f"opt {k}", full.state["opt"][k], state["opt"][k]) for k in state["opt"]] + [
+            (f"agg {k}", full.state["agg"][k], state["agg"][k]) for k in state["agg"]]:
+        check(same_bits(a, b), f"phase12a full-buffer flush != sync round: {name}")
+    print(f"phase12a full buffer (C = {fed.n_clients} of {fed.n_clients}): the flush equals "
+          f"the sync round bitwise (params, opt mu, agg prev_sums, loss {rec.loss!r})  [{card}]",
+          flush=True)
+    del full, state
+
+    eng = ae.BufferedAsyncEngine(cfg, fed, sgd(1e-3), seed=ASYNC_SEED, timing=timing, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pack.packed_bucket_reduce.launches = 0
+    recs, ms, redispatched = [], [], 0
+    for b in batches:
+        before, old_global = eng.state["params"].clone(), eng.global_packed_row()
+        version = eng.dispatch_version.copy()
+        rec, t = timed_flush(lambda: eng.step_round(b))
+        recs.append(rec)
+        ms.append(t)
+        redispatched += inflight_unchanged(eng, before, old_global, version, rec.participants)
+        del before
+    launches = pack.packed_bucket_reduce.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stal = [s for r in recs for s in r.staleness]
+    dropped = sum(r.dropped for r in recs)
+    check(all(np.isfinite(r.loss) for r in recs), f"phase12a losses {[r.loss for r in recs]}")
+    check(launches == ASYNC_FLUSHES, f"phase12a K1 launched {launches} times in "
+                                     f"{ASYNC_FLUSHES} flushes")
+    check(max(stal) >= 1 and dropped >= 1 and redispatched == dropped,
+          f"phase12a staleness {stal}, {dropped} dropped, {redispatched} redispatched")
+    # a profile of 2 more flushes: "profiler" only when it recorded exactly
+    # one bucket_reduce_kernel launch a flush
+    k1_ms, k1_from = device_ms(lambda: eng.step_round(batches[0]), "bucket_reduce_kernel", reps=2)
+    print(f"phase12a buffered eq6 C {fed.n_clients}, buffer {fed.buffer_size}, alpha "
+          f"{fed.staleness_alpha}, max_staleness {fed.max_staleness}, uplink spread 0.5, seed "
+          f"{ASYNC_SEED}: {ASYNC_FLUSHES} flushes, participants {[r.participants for r in recs]}, "
+          f"staleness {[r.staleness for r in recs]}, dropped {[r.dropped for r in recs]}, sim "
+          f"{[round(r.sim_time, 1) for r in recs]} s; in-flight rows bitwise across every flush; "
+          f"K1 {launches} launches (a profile of 2 flushes: "
+          f"{'1 bucket_reduce_kernel launch a flush, ' + f'{k1_ms:.4f} ms device' if k1_from == 'profiler' else 'not every launch recorded'}); loss "
+          f"{' '.join(f'{r.loss:.3f}' for r in recs)}  [{card}]", flush=True)
+    print(f"phase12a ms per flush {' '.join(f'{t:.3f}' for t in ms)} (median "
+          f"{statistics.median(ms):.3f}; 2 clients trained, batch {TRAIN_BATCH} at {IMG}); peak "
+          f"device memory {peak:.2f} GiB (with the check's copy of the buffer)  [{card}]",
+          flush=True)
+    del eng
+
+    # the launcher's --mode async
+    args = train.build_parser().parse_args([
+        "--task", "detection", "--full-size", "--device", str(dev), "--img-size", str(IMG),
+        "--clients", str(fed.n_clients), "--mode", "async", "--buffer-size", str(fed.buffer_size),
+        "--max-staleness", str(fed.max_staleness), "--staleness-alpha", str(fed.staleness_alpha),
+        "--agg", "eq6", "--topn", "4", "--optimizer", "sgd", "--lr", "1e-3",
+        "--batch", str(TRAIN_BATCH), "--rounds", str(ASYNC_LAUNCHER_FLUSHES),
+        "--seed", str(ASYNC_SEED)])
+    pack.packed_bucket_reduce.launches = 0
+    run = train.train_detection(args, log=lambda msg: print(f"phase12a {msg}", flush=True))
+    torch.cuda.synchronize()
+    launcher = pack.packed_bucket_reduce.launches
+    summary = run.summary
+    check(summary["mode"] == "async" and summary["rounds"] == ASYNC_LAUNCHER_FLUSHES
+          and np.isfinite(summary["final_loss"]), f"phase12a launcher summary {summary}")
+    check(launcher == ASYNC_LAUNCHER_FLUSHES, f"phase12a the launcher's K1 launched {launcher} "
+                                              f"times in {ASYNC_LAUNCHER_FLUSHES} flushes")
+    print(f"phase12a launcher --mode async: {json.dumps(summary)}; K1 {launcher} launches  "
+          f"[{card}]", flush=True)
+    return {"buffered": launches, "launcher": launcher}
+
+
+def phase12b(dev, card: str) -> None:
+    """Streaming dense at full width against its buffered twin from one
+    seed: the event plane exactly, the global within 1e-5 relative."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import pack
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    fed = FedConfig(aggregation="dense", client_axis="data", data_axis=None, mode="async",
+                    stream=True, agg_impl="kernel", **ASYNC_STREAM)
+    opt = sgd(1e-3, momentum=0.0)
+    gen, _, _ = detection_suite(cfg, dataclasses.replace(fed, mode="sync", stream=False),
+                                batch=TRAIN_BATCH, img_size=IMG)
+    batches = [next(gen) for _ in range(STREAM_FLUSHES)]
+    shape = batches[0]["images"].shape
+    check(shape == (fed.n_clients, 1, TRAIN_BATCH, IMG, IMG, 3), f"phase12b batch {shape}")
+    runs = {}
+    for name in ("streaming", "buffered"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = (ae.StreamingAsyncEngine if name == "streaming" else ae.BufferedAsyncEngine)(
+            cfg, dataclasses.replace(fed, stream=name == "streaming"), opt, seed=0, device=dev)
+        g0 = eng.global_packed_row().cpu()
+        pack.packed_bucket_reduce.launches = 0
+        recs, ms, globals_ = [], [], []
+        for b in batches:
+            rec, t = timed_flush(lambda: eng.step_round(b))
+            recs.append(rec)
+            ms.append(t)
+            globals_.append(eng.global_packed_row().cpu())
+        runs[name] = dict(recs=recs, ms=ms, globals=globals_, g0=g0,
+                          peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          k1=pack.packed_bucket_reduce.launches,
+                          state=tuple(eng.state["ring" if name == "streaming" else "params"].shape))
+        del eng
+    st, bu = runs["streaming"], runs["buffered"]
+    n = st["g0"].numel()
+    check(st["state"] == (fed.max_staleness + 1, n), f"phase12b ring {st['state']}")
+    check(same_bits(st["g0"], bu["g0"]), "phase12b the ring's row 0 != make_state's row 0")
+    check(st["k1"] == 0 and bu["k1"] == STREAM_FLUSHES,
+          f"phase12b K1 launches: streaming {st['k1']}, buffered {bu['k1']}")
+    gaps = []
+    for i, (a, b) in enumerate(zip(st["recs"], bu["recs"])):
+        check((a.participants, a.staleness, a.dropped) == (b.participants, b.staleness, b.dropped),
+              f"phase12b flush {i}: streaming's event plane != buffered's")
+        check(np.isfinite(a.loss) and np.isfinite(b.loss), f"phase12b flush {i} losses")
+        ga, gb = st["globals"][i].double(), bu["globals"][i].double()
+        gaps.append(float((ga - gb).abs().max() / max(float(gb.abs().max()), 1e-9)))
+        check(gaps[-1] < STREAM_TOL, f"phase12b flush {i}: streaming vs buffered relative gap "
+                                     f"{gaps[-1]:.3e} >= {STREAM_TOL}")
+    print(f"phase12b streaming dense C {fed.n_clients}, buffer {fed.buffer_size}, max_staleness "
+          f"{fed.max_staleness}: ring {st['state']} ({st['state'][0] * n * 4 / 1e6:.2f} MB), batch "
+          f"{shape} f32 ({batches[0]['images'].nbytes / 1e6:.1f} MB); participants "
+          f"{[r.participants for r in st['recs']]}, staleness {[r.staleness for r in st['recs']]}, "
+          f"dropped {[r.dropped for r in st['recs']]} == the buffered twin's; global relative gap "
+          f"{' '.join(f'{g:.3e}' for g in gaps)} (held < {STREAM_TOL})  [{card}]", flush=True)
+    for name, r in runs.items():
+        print(f"phase12b {name}: ms per flush {' '.join(f'{t:.3f}' for t in r['ms'])} (median "
+              f"{statistics.median(r['ms']):.3f}; 8 clients trained a flush); peak device memory "
+              f"{r['peak']:.2f} GiB; K1 {r['k1']} launches  [{card}]", flush=True)
+
+
+def record_arrivals(meta: dict, dev) -> tuple:
+    """Drive an arrival engine through ``REPLAY_PLAN`` (each landing trained
+    by the row update and sent through the codec) -> (the schedule of what
+    it did, the engine)."""
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import rounds
+    from repro_torch.core.transport import codec
+    from repro_torch.core.transport import replay as rp
+
+    eng = rp.make_engine(meta, device=dev)
+    cfg = rp.build_cfg(meta)
+    update = ae.build_row_update(cfg, rp.build_fed(meta), rp.build_optimizer(meta))
+    events = []
+    for kind, c, *rest in REPLAY_PLAN:
+        if kind == "dispatch":
+            (t,) = rest
+            eng.clock.advance_to(max(t, eng.clock.now()))
+            events.append(rp.WireEvent("dispatch", t, c, eng.dispatch(c)))
+            continue
+        seq, t = rest
+        version, base = int(eng.dispatch_version[c]), eng.dispatch_row(c)
+        trained, loss = update(torch.from_numpy(base).to(dev),
+                               rounds.to_device(rp.synth_client_batch(cfg, meta, c, seq), dev))
+        landed = codec.decode_update(codec.encode_update(trained.cpu().numpy(), base,
+                                                         meta["wire_codec"], meta["quant_block"]),
+                                     base)
+        res = eng.land(c, landed, loss=float(loss), t=t)
+        events.append(rp.WireEvent("land", t, c, version, seq=seq, dropped=res.dropped,
+                                   flush=-1 if res.flush is None else res.flush.round_idx))
+    return rp.ArrivalSchedule(meta, events), eng
+
+
+def phase12c(dev, card: str) -> dict:
+    """The arrival engine and the replay on the reduced qwen3 under dense
+    and quant8: the replay's global against the recorded run's (bitwise /
+    1e-5), the snapshot round trip bitwise. -> K1's launches."""
+    from repro_torch.core.transport import replay as rp
+    from repro_torch.kernels import pack
+
+    launches = {}
+    for wire_codec in ("dense", "quant8"):
+        meta = dict(REPLAY_META, wire_codec=wire_codec)
+        pack.packed_bucket_reduce.launches = 0
+        sched, eng = record_arrivals(meta, dev)
+        torch.cuda.synchronize()
+        recorded = pack.packed_bucket_reduce.launches
+        flushes = len(eng.history)
+        check(sched.n_flushes == flushes == 5 and sched.n_dropped == eng.dropped_total == 1,
+              f"phase12c {wire_codec}: {sched.n_flushes} flushes, {sched.n_dropped} dropped")
+        check(recorded == flushes, f"phase12c {wire_codec}: K1 launched {recorded} times in "
+                                   f"{flushes} landing flushes")
+        pack.packed_bucket_reduce.launches = 0
+        rep = rp.replay(rp.ArrivalSchedule.from_json(sched.to_json()), device=dev)
+        torch.cuda.synchronize()
+        replayed = pack.packed_bucket_reduce.launches
+        got, want = rep.global_packed_row(), eng.global_packed_row()
+        gap = float((got - want).abs().max())
+        if wire_codec == "dense":
+            check(same_bits(got, want), f"phase12c dense replay != recorded global: gap {gap:.3e}")
+        else:
+            check(gap <= REPLAY_QUANT_TOL, f"phase12c quant8 replay gap {gap:.3e} > "
+                                           f"{REPLAY_QUANT_TOL}")
+        check([r.participants for r in rep.history] == [r.participants for r in eng.history]
+              and replayed == flushes, f"phase12c {wire_codec}: replay flushes or K1 launches "
+                                       f"({replayed}) differ")
+        # the snapshot round trip, bitwise, and both engines go on alike
+        snap = eng.export_state()
+        back = rp.make_engine(meta, device=dev)
+        back.import_state({"arrays": snap["arrays"],
+                           "scalars": json.loads(json.dumps(snap["scalars"]))})
+        again = back.export_state()
+        for k, v in snap["arrays"].items():
+            check(v.dtype == again["arrays"][k].dtype and np.array_equal(
+                v.view(np.uint8), again["arrays"][k].view(np.uint8)),
+                f"phase12c export/import round trip changed {k}")
+        check(same_bits(back.global_packed_row(), want), "phase12c imported global differs")
+        print(f"phase12c {wire_codec}: {len(sched.events)} events recorded ({flushes} landing "
+              f"flushes, {sched.n_dropped} dropped, staleness "
+              f"{[r.staleness for r in eng.history]}), replayed through a fresh engine: global "
+              f"max abs gap {gap:.3e} ({'bitwise' if wire_codec == 'dense' else f'held <= {REPLAY_QUANT_TOL}'}); "
+              f"K1 {recorded} launches recorded, {replayed} replayed; export/import bitwise  "
+              f"[{card}]", flush=True)
+        launches[wire_codec] = recorded
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -2398,6 +2726,11 @@ def main() -> None:
     compact_launches = phase11c(dev, card)
     phase11d(dev, card)
 
+    # ---- phase 12: the async control plane --------------------------------
+    async_launches = phase12a(dev, card)
+    phase12b(dev, card)
+    async_launches.update({f"arrival_{k}": v for k, v in phase12c(dev, card).items()})
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -2422,7 +2755,10 @@ def main() -> None:
         entry("packed_bucket_reduce", "bucket_reduce.cu", "pack.py:132",
               train_launches["packed_bucket_reduce"], k_stats["packed_bucket_reduce"],
               launches_lm_training=lm_train["packed_bucket_reduce"],
-              launches_demo=lm_train["packed_bucket_reduce_demo"]),
+              launches_demo=lm_train["packed_bucket_reduce_demo"],
+              launches_async={**async_launches, "main_path": f"phase 12: {ASYNC_FLUSHES} "
+                              f"buffered flushes, {ASYNC_LAUNCHER_FLUSHES} through the launcher, "
+                              f"5 landing flushes per codec"}),
         entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
               k_stats["pairwise_iou"], launch_floor_ms=floor_ms, launch_floor_ms_from=floor_from),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],

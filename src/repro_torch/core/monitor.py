@@ -4,8 +4,9 @@ of federated model training on FedVision").
 
 Renders per-task progress — round, loss sparkline, participation, mAP —
 as the text analogue of the platform's dashboard. Per-client detail is
-capped at a top-k (``top_clients``). The async, wire, serving and JSON
-views belong to later slices.
+capped at a top-k (``top_clients``). An async history (``AsyncRoundRecord``)
+adds the simulated clock, the staleness trajectory and the dropped count.
+The wire, serving and JSON views belong to slices 5 and 6.
 """
 from __future__ import annotations
 
@@ -53,6 +54,18 @@ def render_task(task_id: str, history, n_clients: int, upload_bytes_per_round: f
         f"  loss     {losses[0]:.4f} → {losses[-1]:.4f}   {sparkline(losses)}",
         f"  clients  {parts}/{n_clients} participating   round wall {last.seconds:.2f}s",
     ]
+    if getattr(last, "sim_time", None) is not None and hasattr(last, "staleness"):
+        # buffered-async rounds (DESIGN.md §12): simulated wall clock,
+        # per-flush staleness trajectory, and dropped stale updates
+        stale = [
+            (sum(r.staleness) / len(r.staleness)) if r.staleness else 0.0
+            for r in history
+        ]
+        dropped = sum(getattr(r, "dropped", 0) for r in history)
+        lines.append(
+            f"  async    sim clock {last.sim_time:.0f}s   staleness "
+            f"{stale[-1]:.2f}   {sparkline(stale)}   dropped {dropped}"
+        )
     if eval_history:
         # per-round detection quality (server.evaluate_round trajectory)
         maps = [e.map50 for e in eval_history]

@@ -15,7 +15,9 @@ the same layout (``optim``). One round:
    parts and averages their gradients (and losses). The reference
    vmaps the clients and scans the steps inside one donated jit; here the
    clients are a loop and the steps a Python loop, and the in-place update
-   of the one buffer takes the place of donation;
+   of the one buffer takes the place of donation. The trainer is exposed
+   (:func:`local_training`, :func:`train_clients`): the async engines'
+   flushes and the row update train through it;
 2. the buffer goes straight to the registered aggregator, which writes the
    dispatch into it in place (``core.aggregators``).
 
@@ -154,24 +156,39 @@ def _check_ported(fed: FedConfig) -> None:
 # State
 # ---------------------------------------------------------------------------
 
+def seed_generator(cfg, seed: int, device: str | torch.device = "cuda") -> torch.Generator:
+    """The generator an entry point draws its initial model from: fedyolov3's
+    on the host, an LM's on ``device`` (a full-width model is 1.7 B values).
+    Every engine with one seed starts from one global this way."""
+    return torch.Generator(device="cpu" if cfg.family == "yolo" else device).manual_seed(seed)
+
+
+def initial_row(agg: aggregators.Aggregator, generator: torch.Generator | None = None,
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The server's first dispatch as one packed (1, N_total) row on
+    ``device``, drawn by ``init_params`` from ``generator`` (seed 0 when
+    None): row 0 of :func:`make_state`, and the async engines' first global."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    tree = mp.init_params(agg.ctx.template, generator, dtype)
+    return packing.pack(agg.ctx.spec, mp.map_tree(lambda x: x[None], tree), dtype).to(device)
+
+
 def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Generator | None = None,
                device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
                mesh=None) -> PyTree:
     """The flat round state on ``device``: every client row starts from one
-    model (the server's dispatch) drawn by ``init_params`` from
-    ``generator`` (seed 0 when None); under a client mesh, this rank's rows
-    (``packing.packed_pspec``) and their moments. The fedsgd topology holds
-    the one shared (N_total,) row, its (N_total,) moments and no aggregator
-    state. Parity with the reference comes from carrying its state over
-    (``models.convert``)."""
+    model (the server's dispatch, :func:`initial_row`); under a client mesh,
+    this rank's rows (``packing.packed_pspec``) and their moments. The
+    fedsgd topology holds the one shared (N_total,) row, its (N_total,)
+    moments and no aggregator state. Parity with the reference comes from
+    carrying its state over (``models.convert``)."""
     from repro_torch import device as D
 
     dev = D.resolve(device)
     agg = make_aggregator(cfg, fed, mesh)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    tree = mp.init_params(agg.ctx.template, generator, dtype)
-    row = packing.pack(agg.ctx.spec, mp.map_tree(lambda x: x[None], tree), dtype).to(dev)
+    row = initial_row(agg, generator, dev, dtype)
     if not agg.stacked:
         return {"params": row[0], "opt": {k: v[0] for k, v in optimizer.init(row).items()},
                 "agg": {}, "round": 0}
@@ -185,6 +202,13 @@ def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Gener
     }
 
 
+def is_stateless(optimizer: Optimizer) -> bool:
+    """True when ``optimizer`` keeps no per-client state between rounds
+    (``sgd(momentum=0.0)``): the rule of the row update, the streaming
+    flush and the arrival engine, which keep no optimizer rows."""
+    return not optimizer.init(torch.empty((1, 0)))
+
+
 def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
     """Edge helper: the param tree of a flat state (one copy; HWIO for
     fedyolov3, the template's layout for an LM), client-stacked for a
@@ -195,6 +219,18 @@ def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
     if params.dim() == 1:  # fedsgd: one shared row
         return mp.map_tree(lambda x: x[0], packing.unpack(spec, params[None], tpl))
     return packing.unpack(spec, params, tpl)
+
+
+def global_model(cfg, row: torch.Tensor, device: str | torch.device = "cuda"):
+    """One packed (N_total,) global row -> the dispatchable model: a
+    ``FedYOLOv3`` on ``device`` holding its own copy of the weights, or an
+    LM's param tree of copies. Nothing returned aliases ``row``."""
+    tpl = make_template(cfg)
+    spec = packing.build_pack_spec(cfg, tpl)
+    if cfg.family != "yolo":
+        return mp.map_tree(lambda x: x[0], packing.unpack(spec, row[None], tpl))
+    with torch.device(device):
+        return yolov3.FedYOLOv3(cfg, weights=packing.unpack_views(spec, row, tpl)).eval()
 
 
 # ---------------------------------------------------------------------------
@@ -262,53 +298,15 @@ def to_device(batch: PyTree, device: str | torch.device) -> PyTree:
 # The round
 # ---------------------------------------------------------------------------
 
-def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Callable:
-    """Returns ``fed_round(state, batch, part) -> (state, metrics)``.
-
-    batch: ``{"images" (C, E, b, H, W, 3), "targets": per scale {"obj",
-    "box", "cls"} (C, E, b, ...)}`` for detection, ``{"tokens" (C, E, b,
-    S)}`` for an LM, on the state's device (``to_device``); the whole
-    cohort's batch on every rank of a client mesh. fedsgd takes the
-    cohort's batch as one, ``(E, C b, ...)`` (:func:`merge_clients`).
-    part: a bare (C,) normalized weight vector (full participation) or the
-    ``participation_input`` dict. metrics: ``{"loss": participant mean,
-    "client_loss": (C,)}``, tensors on the device (no host sync).
-
-    mesh: a ``torch.distributed`` ``DeviceMesh`` with a dim named
-    ``fed.client_axis`` (module docstring), or None.
-    """
-    if fed.mode != "sync":
-        raise ValueError(
-            f"build_fed_round builds the synchronous round (mode='sync'), got "
-            f"mode={fed.mode!r}; the async engines are ported in slice 4"
-        )
-    agg = make_aggregator(cfg, fed, mesh)
-    if fed.participation not in ("full", "masked", "compact"):
-        raise ValueError(
-            f"unknown participation {fed.participation!r}; expected full|masked|compact"
-        )
-    if fed.participation != "full" and not agg.stacked:
-        raise ValueError(
-            f"participation={fed.participation!r} needs a client-stacked "
-            "topology; fedsgd runs one shared model copy (use participation='full')"
-        )
-    if fed.participation == "compact" and not 1 <= static_budget(fed) <= fed.n_clients:
-        raise ValueError(
-            f"compact participation: max_participants={fed.max_participants} "
-            f"must be in [1, n_clients={fed.n_clients}]"
-        )
-    C = fed.n_clients
-    S = packing.mesh_axis_size(mesh, fed.client_axis)
-    if S > 1 and C % S:
-        raise ValueError(
-            f"sharded client axis: n_clients={C} must be "
-            f"divisible by the '{fed.client_axis}' mesh axis ({S} shards)"
-        )
-    if S > 1 and not agg.stacked:
-        raise NotImplementedError("fedsgd over a sharded client axis (a data-parallel gradient "
-                                  "all-reduce of the one shared copy) is slice 8")
-    own = packing.packed_pspec(C, fed.client_axis, mesh)
-    spec, tpl = agg.ctx.spec, agg.ctx.template
+def local_training(cfg, fed: FedConfig, optimizer: Optimizer) -> Callable:
+    """The local trainer every engine shares: ``local_train(row, opt_row,
+    batch) -> mean step loss`` runs ``fed.local_steps`` steps on one packed
+    (N_total,) row and its optimizer rows (a dict of the matching rows of
+    each state buffer, ``{}`` for a stateless optimizer), in place; ``batch``
+    leaves are (E, b, ...). The sync round, the buffered flush, the
+    streaming fold and the row update all train through it."""
+    tpl = make_template(cfg)
+    spec = packing.build_pack_spec(cfg, tpl)
     loss_fn = loss_for(cfg)
 
     def grads_of(row: torch.Tensor, step_batch: PyTree):
@@ -343,8 +341,6 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
         return packing.exact_div(tot, float(m)), packing.exact_div(g_sum, float(m))
 
     def local_train(row: torch.Tensor, opt_row: dict, batch: PyTree) -> torch.Tensor:
-        """E local steps on one packed row and its optimizer rows, in place;
-        ``batch`` leaves are (E, b, ...) -> mean step loss."""
         losses = []
         for e in range(fed.local_steps):
             loss, g = grads_of(row, mp.map_tree(lambda x: x[e], batch))
@@ -352,6 +348,77 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
                 optimizer.update(row, g, opt_row)
             losses.append(loss)
         return torch.stack(losses).mean()
+
+    return local_train
+
+
+def train_clients(local_train: Callable, packed: torch.Tensor, opt: dict, batch: PyTree,
+                  on: np.ndarray, own: slice = slice(None)) -> torch.Tensor:
+    """Train, in place, every client ``c`` of this rank's rows ``own`` (row
+    ``c - own.start`` of ``packed`` and of each ``opt`` buffer) with
+    ``on[c]``, on its batch ``batch[c]`` -> the (rows,) loss, 0 for a client
+    that sat out (its rows untouched)."""
+    start = own.start or 0
+    loss = torch.zeros(packed.shape[0], dtype=torch.float32, device=packed.device)
+    for r in range(packed.shape[0]):
+        c = start + r
+        if on[c]:
+            loss[r] = local_train(packed[r], {k: v[r] for k, v in opt.items()},
+                                  mp.map_tree(lambda x: x[c], batch))
+    return loss
+
+
+def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Callable:
+    """Returns ``fed_round(state, batch, part) -> (state, metrics)``.
+
+    batch: ``{"images" (C, E, b, H, W, 3), "targets": per scale {"obj",
+    "box", "cls"} (C, E, b, ...)}`` for detection, ``{"tokens" (C, E, b,
+    S)}`` for an LM, on the state's device (``to_device``); the whole
+    cohort's batch on every rank of a client mesh. fedsgd takes the
+    cohort's batch as one, ``(E, C b, ...)`` (:func:`merge_clients`).
+    part: a bare (C,) normalized weight vector (full participation) or the
+    ``participation_input`` dict. metrics: ``{"loss": participant mean,
+    "client_loss": (C,)}``, tensors on the device (no host sync).
+
+    mesh: a ``torch.distributed`` ``DeviceMesh`` with a dim named
+    ``fed.client_axis`` (module docstring), or None.
+    """
+    if fed.mode != "sync":
+        # this builder always emits the synchronous round; the buffered
+        # control plane builds its full-buffer flush through here with
+        # mode="sync"
+        raise ValueError(
+            f"build_fed_round builds the synchronous round (mode='sync'), got "
+            f"mode={fed.mode!r}; drive async mode through "
+            "core/async_engine.BufferedAsyncEngine or FLServer"
+        )
+    agg = make_aggregator(cfg, fed, mesh)
+    if fed.participation not in ("full", "masked", "compact"):
+        raise ValueError(
+            f"unknown participation {fed.participation!r}; expected full|masked|compact"
+        )
+    if fed.participation != "full" and not agg.stacked:
+        raise ValueError(
+            f"participation={fed.participation!r} needs a client-stacked "
+            "topology; fedsgd runs one shared model copy (use participation='full')"
+        )
+    if fed.participation == "compact" and not 1 <= static_budget(fed) <= fed.n_clients:
+        raise ValueError(
+            f"compact participation: max_participants={fed.max_participants} "
+            f"must be in [1, n_clients={fed.n_clients}]"
+        )
+    C = fed.n_clients
+    S = packing.mesh_axis_size(mesh, fed.client_axis)
+    if S > 1 and C % S:
+        raise ValueError(
+            f"sharded client axis: n_clients={C} must be "
+            f"divisible by the '{fed.client_axis}' mesh axis ({S} shards)"
+        )
+    if S > 1 and not agg.stacked:
+        raise NotImplementedError("fedsgd over a sharded client axis (a data-parallel gradient "
+                                  "all-reduce of the one shared copy) is slice 8")
+    own = packing.packed_pspec(C, fed.client_axis, mesh)
+    local_train = local_training(cfg, fed, optimizer)
 
     def fedsgd_round(state: PyTree, batch: PyTree):
         # clients = data-parallel shards of one batch, so param-averaging is
@@ -373,12 +440,7 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
             on = mask.numpy() > 0
         else:  # full participation trains every client; the mask still
             on = np.ones(C, bool)  # shapes the aggregate and the mean loss
-        loss = torch.zeros(packed.shape[0], dtype=torch.float32, device=packed.device)
-        for c in range(own.start, own.stop):
-            if on[c]:
-                r = c - own.start
-                loss[r] = local_train(packed[r], {k: v[r] for k, v in state["opt"].items()},
-                                      mp.map_tree(lambda x: x[c], batch))
+        loss = train_clients(local_train, packed, state["opt"], batch, on, own)
         mask_d = None if mask is None else mask.to(packed.device)
         if S > 1:
             loss = aggregators.gather_clients(loss, fed, mesh)
@@ -389,7 +451,7 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
         else:
             packed, agg_state = agg.aggregate(packed, weights, state["agg"], mask_d)
         out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
-        return out, _round_metrics(loss, mask_d)
+        return out, round_metrics(loss, mask_d)
 
     return fed_round
 
@@ -401,7 +463,7 @@ def merge_clients(batch: PyTree) -> PyTree:
         (x.shape[1], x.shape[0] * x.shape[2]) + tuple(x.shape[3:])), batch)
 
 
-def _round_metrics(loss: torch.Tensor, mask: torch.Tensor | None) -> dict:
+def round_metrics(loss: torch.Tensor, mask: torch.Tensor | None) -> dict:
     if mask is None:
         mean_loss = torch.mean(loss)
     else:

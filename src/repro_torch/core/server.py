@@ -1,4 +1,4 @@
-"""FL_SERVER — orchestrates federated rounds (port of the sync path of
+"""FL_SERVER — orchestrates federated rounds (port of
 ``repro/core/server.py``).
 
 The server owns the flat round state and the round function
@@ -20,8 +20,13 @@ merged into one (``rounds.merge_clients``). A client mesh (``mesh``, a
 ``torch.distributed`` ``DeviceMesh``) goes to the round; every rank of it
 runs the same server, with the same seeds, in step.
 
-The async control plane (``mode="async"``) and the shared simulated clock
-belong to later slices.
+Async mode (``FedConfig.mode == "async"``, DESIGN.md §12) swaps the round
+control plane for ``core.async_engine``: the buffered engine, or the
+streaming one under ``FedConfig.stream``. :meth:`FLServer.run_async` drives
+one flush a call on the engine's simulated clock and records per-update
+staleness and the simulated time in the history the monitor renders; the
+engine feeds the scheduler's quality EMA from its completions. A simulated
+clock shared between servers (the Task Manager's) is slice 6.
 """
 from __future__ import annotations
 
@@ -35,8 +40,11 @@ import torch
 from repro_torch import device as D
 from repro_torch.checkpoint import ObjectStore
 from repro_torch.core import aggregators, explorer, packing, rounds
+from repro_torch.core.async_engine import (AsyncRoundRecord, BufferedAsyncEngine,
+                                           StreamingAsyncEngine, TimingModel,
+                                           default_upload_terms)
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
-from repro_torch.models.params import map_tree
+from repro_torch.core.simclock import SimClock
 from repro_torch.models.yolov3 import FedYOLOv3
 from repro_torch.optim import Optimizer
 
@@ -76,12 +84,11 @@ class FLServer:
         task_id: str = "task",
         load_model: explorer.ClientLoadModel | None = None,
         clock=None,
+        timing: TimingModel | None = None,
         device: str | torch.device = "cuda",
         mesh=None,
     ):
-        if fed.mode == "async":
-            raise NotImplementedError("mode='async' (the buffered engines) is ported in slice 4")
-        if fed.mode != "sync":
+        if fed.mode not in ("sync", "async"):
             raise ValueError(f"unknown mode {fed.mode!r}; expected sync|async")
         if clock is not None:
             raise NotImplementedError("a shared simulated clock (TaskManager) is ported in slice 6")
@@ -95,19 +102,34 @@ class FLServer:
         self.scheduler = scheduler or TaskScheduler(fed.n_clients, SchedulerConfig())
         self.load_model = load_model or explorer.ClientLoadModel(fed.n_clients, seed=seed)
         self.mesh = mesh
+        self.clock = SimClock()  # this server's own (a shared one is slice 6)
+        self.timing = timing or TimingModel()
         # compact rounds need the scheduler to emit exactly K indices
         self._k_static = rounds.static_budget(fed) if fed.participation == "compact" else None
         # registry dispatch: an unknown mode or an unported configuration
         # fails here, before any state is allocated
         self.aggregator = rounds.make_aggregator(cfg, fed, mesh)
-        # an LM's initial model is drawn on the server's device (a full-width
-        # model is 1.7 B values); fedyolov3's on the host, as before
-        gen_device = "cpu" if cfg.family == "yolo" else self.device
-        self.state = rounds.make_state(cfg, fed, optimizer,
-                                       torch.Generator(device=gen_device).manual_seed(seed),
-                                       self.device, mesh=mesh)
-        self._fed_round = rounds.build_fed_round(cfg, fed, optimizer, mesh)
-        self.history: list[RoundRecord] = []
+        self.engine: BufferedAsyncEngine | None = None
+        if fed.mode == "async":
+            # the engine owns the state and the flush; stream=True swaps the
+            # O(C N) buffer for the ring and the running accumulator
+            engine_cls = StreamingAsyncEngine if fed.stream else BufferedAsyncEngine
+            self.engine = engine_cls(
+                cfg, fed, optimizer, mesh=mesh, seed=seed, clock=self.clock,
+                load_model=self.load_model,
+                timing=self.timing, scheduler=self.scheduler, aggregator=self.aggregator,
+                device=self.device)
+            self.state = self.engine.state
+            self._fed_round = None
+            self._upload_s = self.engine.upload_s
+        else:
+            self.state = rounds.make_state(cfg, fed, optimizer,
+                                           rounds.seed_generator(cfg, seed, self.device),
+                                           self.device, mesh=mesh)
+            self._fed_round = rounds.build_fed_round(cfg, fed, optimizer, mesh)
+            self._upload_s = default_upload_terms(self.timing, fed.n_clients,
+                                                  self.aggregator.ctx.spec.n_total, seed)
+        self.history: list[RoundRecord | AsyncRoundRecord] = []
         self.eval_history: list[EvalRecord] = []
         self._evaluator = None  # (max_detections, evaluate), built lazily
 
@@ -117,21 +139,21 @@ class FLServer:
         return aggregators.names()
 
     def global_params(self) -> FedYOLOv3 | PyTree:
-        """The dispatchable global model from row 0 of the packed state
-        (every row holds the global model after a sync round), or fedsgd's
-        one shared copy: a fresh :class:`FedYOLOv3` on the server's device,
-        or for an LM a param tree copied out of the row (the reference's
-        one-row unpack). This is the pack/unpack edge: checkpoint PUT,
-        evaluation and dispatch to serving. Over a sharded client axis row 0
-        lives on the axis' first rank, which broadcasts it: every rank calls
-        this together."""
-        spec, tpl = self.aggregator.ctx.spec, self.aggregator.ctx.template
-        row = self.state["params"] if not self.aggregator.stacked else self._row0()
-        if self.cfg.family != "yolo":
-            return map_tree(lambda x: x[0], packing.unpack(spec, row[None], tpl))
-        views = packing.unpack_views(spec, row, tpl)
-        with self.device:
-            return FedYOLOv3(self.cfg, weights=views).eval()
+        """The dispatchable global model: a fresh :class:`FedYOLOv3` on the
+        server's device, or for an LM a param tree copied out of the row
+        (the reference's one-row unpack). After a sync round every row holds
+        the global, so row 0 serves (fedsgd: its one shared copy; over a
+        sharded client axis row 0 lives on the axis' first rank, which
+        broadcasts it: every rank calls this together). An async state only
+        guarantees some rows hold the fresh global, so this reads the
+        engine's ``global_packed_row()``, never a fixed row. This is the
+        pack/unpack edge: checkpoint PUT, evaluation and dispatch to
+        serving."""
+        if self.engine is not None:
+            row = self.engine.global_packed_row()
+        else:
+            row = self.state["params"] if not self.aggregator.stacked else self._row0()
+        return rounds.global_model(self.cfg, row, self.device)
 
     def _row0(self) -> torch.Tensor:
         packed = self.state["params"]
@@ -149,6 +171,10 @@ class FLServer:
         """One sync round. ``batch`` (the cohort's, client-stacked (C, E, b,
         ...)) may hold NumPy arrays or tensors; it is moved to the server's
         device."""
+        if self.engine is not None:
+            raise RuntimeError(
+                "FedConfig(mode='async') servers run buffered flushes — call "
+                "run_async(batch) (or fit(), which dispatches on the mode)")
         t0 = time.time()
         loads = self.load_model.step()  # one tick per round
         sel = self.scheduler.participation(loads, k_static=self._k_static)
@@ -175,6 +201,42 @@ class FLServer:
             self.store.put_model(self.task_id, rec.round_idx, self.global_params(), {"loss": loss})
         return rec
 
+    def run_async(self, batch: PyTree) -> AsyncRoundRecord:
+        """One buffered flush on the simulated clock (DESIGN.md §12): the
+        engine pops completion events until ``buffer_size`` updates stage
+        (dropping and counting anything staler than max_staleness), applies
+        the staleness-weighted flush and redispatches. The record (with
+        per-update staleness and the simulated time) lands in the history
+        the monitor renders."""
+        if self.engine is None:
+            raise RuntimeError("run_async needs FedConfig(mode='async')")
+        rec = self.engine.step_round(batch)
+        self.state = self.engine.state  # global_params and eval read through here
+        self.history.append(rec)
+        if self.store and self.checkpoint_every and rec.round_idx % self.checkpoint_every == 0:
+            self.store.put_model(self.task_id, rec.round_idx, self.global_params(),
+                                 {"loss": rec.loss})
+        return rec
+
+    def next_time(self) -> float:
+        """Simulated completion time of this server's next round. Async
+        servers report their earliest queued completion; sync servers
+        estimate now + wait-for-slowest over the clients the scheduler is
+        likely to select: the K fastest under its budget plus every client
+        whose idle streak hit the fairness floor."""
+        if self.engine is not None:
+            t = self.engine.next_completion_time()
+            return self.clock.now() if t is None else t
+        per = np.array([self.timing.compute_seconds(l, self.fed.local_steps)
+                        for l in self.load_model.loads]) + self._upload_s
+        k = self._k_static or self.scheduler.cfg.max_participants or self.fed.n_clients
+        k = min(k, self.fed.n_clients)
+        dur = float(np.sort(per)[:k].max())
+        floored = per[self.scheduler.idle_rounds >= self.scheduler.cfg.fairness_rounds]
+        if floored.size:
+            dur = max(dur, float(floored.max()))
+        return self.clock.now() + dur
+
     def evaluate_round(self, eval_batch: PyTree, *, max_detections: int = 64,
                        feed_scheduler: bool = True) -> EvalRecord:
         """Detection-quality checkpoint: the global model against each
@@ -200,9 +262,14 @@ class FLServer:
 
     def fit(self, batches: Iterator[PyTree], n_rounds: int,
             log: Callable[[str], None] = lambda m: print(m, flush=True)) -> list[RoundRecord]:
+        step = self.run_async if self.engine is not None else self.run_round
         for r in range(n_rounds):
-            rec = self.run_round(next(batches))
+            rec = step(next(batches))
             if log and (r % max(1, n_rounds // 10) == 0 or r == n_rounds - 1):
-                log(f"round {rec.round_idx:4d}  loss {rec.loss:.4f}  "
-                    f"participants {len(rec.participants)}/{self.fed.n_clients}")
+                msg = (f"round {rec.round_idx:4d}  loss {rec.loss:.4f}  "
+                       f"participants {len(rec.participants)}/{self.fed.n_clients}")
+                if isinstance(rec, AsyncRoundRecord):
+                    msg += (f"  sim {rec.sim_time:7.0f}s  staleness "
+                            f"{np.mean(rec.staleness):.2f}  dropped {rec.dropped}")
+                log(msg)
         return self.history

@@ -16,8 +16,8 @@ RESULT carries the version it was served from and the freshness tier that
 
 The wire is ``core/transport/wire.py``'s CRC-framed INFER/RESULT/STATUS,
 byte-compatible with the reference, so the reference's ``InferenceClient``
-talks to this service. ``publish_from_engine`` and ``unpack_global`` (the
-async engine's publish path) belong to a later slice.
+talks to this service. :func:`publish_from_engine` publishes an async
+engine's landed global at its version through :func:`unpack_global`.
 """
 from __future__ import annotations
 
@@ -143,6 +143,29 @@ class ModelSlot:
     def empty(self) -> bool:
         with self._lock:
             return self._published is None
+
+
+def unpack_global(cfg, fed: R.FedConfig, row: torch.Tensor,
+                  device: str | torch.device | None = None):
+    """(N_total,) packed global row -> the model the slot serves (a
+    ``FedYOLOv3``, or an LM's param tree) on ``device`` (the row's when
+    None): the pack/unpack edge ``server.global_params`` crosses. The model
+    holds copies; it never aliases ``row``, which an engine rewrites in
+    place at its next landing or flush."""
+    return R.global_model(cfg, row, row.device if device is None else device)
+
+
+def publish_from_engine(slot: ModelSlot, engine, cfg, *, t: float | None = None) -> bool:
+    """Publish the engine's landed global at its landed round version.
+
+    Reads ``engine.global_packed_row()`` (a copy of each engine's current
+    global; the arrival engine keeps its own because its buffer rows change
+    on every landing), never a row of ``state["params"]``, which mid-window
+    may hold a client's next trained update: the served version is the
+    engine's landed round version by construction, and the published
+    params stay as they are through later landings and flushes."""
+    return slot.publish(engine.version, unpack_global(cfg, engine.fed, engine.global_packed_row()),
+                        t=t)
 
 
 # -- the detection program cache ---------------------------------------------

@@ -14,6 +14,12 @@
       --rounds 2 --agg hier --clients 4 --group-size 2 --hier-base eq6
   PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
       --rounds 3 --agg quant8 --participation compact --clients 3 --max-participants 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --device cpu \\
+      --rounds 3 --mode async --buffer-size 2 --staleness-alpha 0.5 --max-staleness 4
+  PYTHONPATH=src python -m repro_torch.launch.train --task detection --device cpu \\
+      --rounds 3 --mode async --stream --clients 8 --buffer-size 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --replay-schedule run.schedule.json
 
 Runs the paper's federated detection workload: FedYOLOv3 over a
 partitioned synthetic scene pool, the Task Scheduler and the Explorer's
@@ -43,8 +49,17 @@ gloo on the host), so ``--agg quant8`` takes the gathered int8 transport
 ``--participation compact --max-participants K`` trains exactly K clients a
 round. Every registered aggregator but the fedsgd topology is a ``--agg``
 choice (fedsgd is reached through ``FLServer`` / ``build_fed_round``).
-``--mode async``, ``--transport socket``, ``--restore`` and
-``--replay-schedule`` belong to later slices and raise.
+
+``--mode async`` runs the buffered FedBuff engine on a simulated clock
+(``core.async_engine``, DESIGN.md §12): a flush every ``--buffer-size``
+landed updates, discounted by ``(1 + staleness)^-alpha``, updates staler
+than ``--max-staleness`` dropped and counted; ``--rounds`` counts flushes.
+``--stream`` takes the streaming flush (a ring of global rows and a running
+sum, O(buffer · N) memory; it forces ``--agg dense`` and a stateless sgd).
+``--replay-schedule`` replays a recorded arrival schedule (JSON) through
+the arrival engine and exits. ``--transport socket``, ``--record-schedule``
+and ``--restore`` (the multi-process wire and its durability) are slice 5
+and raise.
 """
 from __future__ import annotations
 
@@ -100,10 +115,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hier-base", default="dense",
                     help="hier: the stacked aggregator composed over group rows")
     ap.add_argument("--topn", type=int, default=0)
-    ap.add_argument("--mode", default="sync", choices=["sync", "async"])
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"],
+                    help="round control plane: sync (wait for every selected client) or async "
+                    "(buffered staleness-weighted flushes on a simulated clock)")
+    ap.add_argument("--buffer-size", type=int, default=0,
+                    help="async: flush after this many landed updates (0 -> clients, which "
+                    "reproduces the sync round)")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="async: polynomial staleness discount (1+s)^-alpha")
+    ap.add_argument("--stream", action="store_true",
+                    help="async: streaming O(buffer_size*N) flush (forces --agg dense and a "
+                    "stateless sgd local optimizer)")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="async: drop updates staler than this many versions (0 -> keep all)")
     ap.add_argument("--transport", default="inproc", choices=["inproc", "socket"])
-    ap.add_argument("--restore", default="", help="durable-run recovery (a later slice)")
-    ap.add_argument("--replay-schedule", default="", help="schedule replay (a later slice)")
+    ap.add_argument("--record-schedule", default="",
+                    help="socket: write the recorded arrival schedule (slice 5)")
+    ap.add_argument("--replay-schedule", default="",
+                    help="replay a recorded arrival schedule through the arrival engine and exit")
+    ap.add_argument("--restore", default="", help="durable-run recovery (slice 5)")
     ap.add_argument("--participation", default="full", choices=["full", "masked", "compact"])
     ap.add_argument("--max-participants", type=int, default=0,
                     help="scheduler budget per round (0 -> clients//2, min 2)")
@@ -152,17 +182,31 @@ class TrainRun:
 
 
 def _check_ported(args) -> None:
-    if args.replay_schedule:
-        raise NotImplementedError("--replay-schedule (the recorded wire schedule) is slice 5")
+    """Refuse what the port does not run yet, and the reference launcher's
+    invalid flag combinations; apply its ``--stream`` coercions."""
     if args.restore:
         raise NotImplementedError("--restore (durable-run recovery) is slice 5")
     if args.transport != "inproc":
         raise NotImplementedError("--transport socket (the multi-process wire) is slice 5")
-    if args.mode != "sync":
-        raise NotImplementedError("--mode async (the buffered engines) is slice 4")
+    if args.record_schedule:
+        raise NotImplementedError("--record-schedule (the socket run's recorded schedule) is "
+                                  "slice 5")
+    if args.mode == "async" and args.participation != "full":
+        raise ValueError("--mode async owns its own participation plane (the event queue); "
+                         "drop --participation")
     if args.agg != "hier" and (args.group_size or args.hier_base != "dense"):
         raise ValueError("--group-size/--hier-base configure the hierarchical aggregator; "
                          "pass --agg hier")
+    if args.stream:
+        if args.mode != "async":
+            raise ValueError("--stream is an async flush discipline; pass --mode async")
+        if args.agg not in ("dense", "eq6"):  # eq6 is the default; coerce it
+            raise ValueError("--stream folds aggregation into a running sum; only "
+                             "--agg dense streams")
+        args.agg = "dense"
+        args.optimizer = "sgd"
+        if args.max_staleness < 1:
+            args.max_staleness = 4  # the dispatch ring needs a bound
 
 
 def resolve_task(args) -> str:
@@ -185,6 +229,11 @@ def fed_config(args, cfg) -> FedConfig:
         data_axis=None,
         participation=args.participation,
         max_participants=budget(args) if args.participation == "compact" else 0,
+        mode=args.mode,
+        buffer_size=args.buffer_size,
+        staleness_alpha=args.staleness_alpha,
+        max_staleness=args.max_staleness,
+        stream=args.stream,
         agg_impl="kernel",
         # fedadam's adaptive step is about server_lr per coordinate: it needs
         # a small one out of the box
@@ -243,7 +292,10 @@ def make_server(args, cfg, fed: FedConfig, dev: torch.device, task_id: str) -> F
     """The FL server for parsed ``args`` on the 1 x 1 client mesh: the
     optimizer, the COS store (checkpoints every 5 rounds), the scheduler's
     :func:`budget` and fairness floor."""
-    optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
+    if args.stream:
+        optimizer = sgd(args.lr, momentum=0.0)  # stateless: the ring keeps no opt rows
+    else:
+        optimizer = adamw(args.lr) if args.optimizer == "adamw" else sgd(args.lr)
     store = ObjectStore(args.store) if args.store else None
     return FLServer(
         cfg, fed, optimizer, store=store,
@@ -254,13 +306,46 @@ def make_server(args, cfg, fed: FedConfig, dev: torch.device, task_id: str) -> F
     )
 
 
-def _summary(history, args, dev: torch.device) -> dict[str, Any]:
-    return {
+def _summary(server: FLServer, args, dev: torch.device) -> dict[str, Any]:
+    history = server.history
+    summary = {
         "final_loss": history[-1].loss,
         "rounds": len(history),
         "participation": args.participation,
         "mean_participants": sum(len(r.participants) for r in history) / len(history),
-        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+    if server.engine is not None:
+        stal = [s for r in history for s in r.staleness]
+        summary.update(
+            mode="async",
+            sim_seconds=history[-1].sim_time,
+            mean_staleness=(sum(stal) / len(stal)) if stal else 0.0,
+            dropped=server.engine.dropped_total,
+        )
+    summary["device"] = _device_name(dev)
+    return summary
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def replay_schedule(args) -> dict[str, Any]:
+    """Replay the recorded arrival schedule at ``--replay-schedule`` through
+    the arrival engine on ``--device``; raises ``ReplayMismatch`` at the
+    first event whose re-derivation disagrees with the record."""
+    from repro_torch.core.transport import replay as rp
+
+    dev = D.resolve(args.device)
+    schedule = rp.ArrivalSchedule.load(args.replay_schedule)
+    engine = rp.replay(schedule, device=dev)
+    return {
+        "replayed_events": len(schedule.events),
+        "flushes": len(engine.history),
+        "final_loss": engine.history[-1].loss if engine.history else float("nan"),
+        "dropped": engine.dropped_total,
+        "deterministic": True,
+        "device": _device_name(dev),
     }
 
 
@@ -283,7 +368,7 @@ def train_lm(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     batches = fed_batches(cfg, fed, batch=args.batch, seq=args.seq,
                           partition_name=args.partition, alpha=args.alpha)
     server.fit(batches, args.rounds, log=log)
-    summary = _summary(server.history, args, dev)
+    summary = _summary(server, args, dev)
     if server.store:
         summary["stored_rounds"] = server.store.rounds(args.arch)
     return TrainRun(server, None, None, None, summary)
@@ -306,8 +391,9 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     gen, eval_batch, _ = detection_suite(cfg, fed, batch=args.batch, img_size=args.img_size,
                                          scenario=scenario, alpha=args.alpha)
     if args.eval_every:
+        step = server.run_async if server.engine is not None else server.run_round
         for r in range(args.rounds):
-            rec = server.run_round(next(gen))
+            rec = step(next(gen))
             if r % args.eval_every == 0 or r == args.rounds - 1:
                 ev = server.evaluate_round(eval_batch)
                 per = " ".join(f"{m:.3f}" for m in ev.per_client_map)
@@ -329,7 +415,7 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     log(f"serving {SERVE_FRAMES} frames (version {len(history)}): {kept} detections after NMS "
         f"(top score {float(served['scores'].max()):.3f})")
 
-    summary = {**_summary(history, args, dev), "served_version": len(history),
+    summary = {**_summary(server, args, dev), "served_version": len(history),
                "served_detections": kept}
     if store:
         summary["stored_rounds"] = store.rounds(task_id)
@@ -342,9 +428,12 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
 
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
-    run = train_lm(args) if resolve_task(args) == "lm" else train_detection(args)
-    print(json.dumps(run.summary), flush=True)
-    return run.summary
+    if args.replay_schedule:
+        summary = replay_schedule(args)
+    else:
+        summary = (train_lm(args) if resolve_task(args) == "lm" else train_detection(args)).summary
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 if __name__ == "__main__":

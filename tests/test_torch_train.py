@@ -356,8 +356,13 @@ def test_unported_configurations_raise():
     # idx rides only under compact participation
     assert "idx" not in rounds.participation_input(_fed("torch"), np.ones(C), np.ones(C) / C,
                                                    idx=np.arange(C))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        FLServer(TCFG, _fed("torch", mode="async"), sgd(), device="cpu")
+    # async mode is ported (tests/test_torch_async.py); a shared clock is not
+    assert FLServer(TCFG, _fed("torch", mode="async", buffer_size=2), sgd(),
+                    device="cpu").engine is not None
+    from repro_torch.core.simclock import SimClock
+
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        FLServer(TCFG, _fed("torch"), sgd(), device="cpu", clock=SimClock())
 
 
 # ------------------------------ state and rounds ----------------------------
@@ -479,8 +484,11 @@ def test_launcher_trains_evaluates_checkpoints_and_serves(tmp_path, capsys):
     assert '"final_loss"' in out.splitlines()[-1]
 
 
-@pytest.mark.parametrize("flags", [["--mode", "async"], ["--transport", "socket"],
-                                   ["--restore", "x"], ["--replay-schedule", "x"]])
+# --mode async and --replay-schedule are ported (tests/test_torch_async.py,
+# tests/test_torch_replay.py); the socket wire and its durability are slice 5
+@pytest.mark.parametrize("flags", [["--mode", "async", "--transport", "socket"],
+                                   ["--transport", "socket"], ["--restore", "x"],
+                                   ["--mode", "async", "--record-schedule", "x"]])
 def test_launcher_paths_of_later_slices_raise(flags):
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         train.main(["--device", "cpu", "--rounds", "1", *flags])
