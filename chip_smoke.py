@@ -195,6 +195,29 @@ recorded every launch made; where no trace does, the kernels line says
    (quant8), K1 once a landing flush in both, and ``export_state`` /
    ``import_state`` round-trips bitwise. Prints ms per flush (CUDA events)
    and peak device memory of each engine.
+13. The socket wire at full width (``core/transport/{server,harness}.py``,
+   ``launch/worker.py``, ``checkpoint/durable.py``). qwen3-1.7b at its
+   published widths with its depth cut to 2 layers (N = 411,838,976: a
+   DISPATCH frame carries the dense f32 row and a frame is capped at
+   2^31 bytes), 4 clients in 2 worker processes on the card, a flush every
+   2 landings, batch 1 x 128. (a) The quant8 socket run, 3 flushes: no
+   deadline hit, K1 once a flush in the server, the recorded schedule
+   replayed on the card to the run's global within 1e-5; prints the dispatch frame's bytes against
+   MAX_FRAME, landings, drops, bytes up and down, seconds, the landing
+   loop's median host ms per landing by step (d2h, decode, h2d, land, the
+   flush's land) and per dispatch, the server's peak device memory; then
+   K1 at a flush's shape (4, N) with the run's bucket ids, bitwise against
+   its plain version, its device ms beside its bound. (b) The dense socket
+   run with a snapshot every 4 landings, killed after 5 (``kill@5``),
+   restored on the same port, 3 flushes: recovered, crashed, one
+   recovery, K1 once a flush and once a flush its recovery replays, the
+   WAL's schedule replayed to the recovered run's global bitwise; prints
+   the run's readings as (a) does, the snapshot's bytes and seconds and
+   the recovery's
+   seconds and replayed events. (c) The launcher at the reduced size:
+   ``--transport socket --wire-codec quant8 --record-schedule``, its
+   ``--replay-schedule``, a ``--durable-dir`` run with ``--fault-plan
+   kill@5``, and ``--restore``; each returns the reference's JSON keys.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -349,6 +372,32 @@ REPLAY_PLAN = [("dispatch", c, 0.0) for c in range(4)] + [
     ("dispatch", 0, 4.6), ("dispatch", 1, 4.6),
     ("land", 3, 1, 5.0), ("land", 2, 1, 5.2)]
 REPLAY_QUANT_TOL = 1e-5
+# 13: the wire at full width. qwen3-1.7b at its published widths with its
+# depth cut to 2 layers: a DISPATCH frame carries the dense f32 row and both
+# packages cap a frame at MAX_FRAME = 2^31 bytes (full depth: 6.88 GB a row),
+# and at C = 4 a full-depth server state alone is 41 GB. 4 clients in 2
+# worker processes, a flush every 2 landings, batch 1 x 128
+WIRE_META = dict(arch="qwen3-1.7b", reduced=False, overrides={"n_layers": 2}, n_clients=4,
+                 buffer_size=2, max_staleness=2, batch=1, seq=128)
+WIRE_FLUSHES = 3
+# 13a runs quant8 alone, replayed within 1e-5: with a dense run too (about
+# 185 s with its replay) the script took 1111 s of its 1200 on the H100;
+# 13b's dense run is replayed bitwise
+WIRE_13A = (("quant8", REPLAY_QUANT_TOL),)
+# 13b: one snapshot (after landing 4), the kill after landing 5; the
+# recovery replays landing 5 and landing 6 makes the third flush
+WIRE_SNAPSHOT_EVERY, WIRE_KILL = 4, "kill@5"
+# a worker waits for its next dispatch while the others' gigabyte frames
+# move; the recovery reads a 6.6 GB snapshot before it rebinds
+WIRE_GROUPS = [{"client_ids": [0, 1], "extra": ["--dispatch-timeout", "300"]},
+               {"client_ids": [2, 3], "extra": ["--dispatch-timeout", "300"]}]
+WIRE_PATIENT = ["--connect-retries", "60", "--backoff-max", "2.0"]
+WIRE_DEADLINE_S = 600.0
+WIRE_RUN_KEYS = ("final_loss", "rounds", "mode", "transport", "wire_codec", "landed", "dropped",
+                 "mean_staleness", "bytes_up", "bytes_down", "deadline_hit", "recovered",
+                 "snapshots", "wal_events", "crc_errors", "faults_injected")
+WIRE_RESTORE_KEYS = ("restored_from", "wal_events", "events_replayed", "version",
+                     "flushes_recovered", "staged_window", "final_loss")
 
 
 def fail(msg: str) -> None:
@@ -2532,9 +2581,241 @@ def phase12c(dev, card: str) -> dict:
     return launches
 
 
+def wire_meta(wire_codec: str) -> dict:
+    from repro_torch.core.transport import harness
+
+    return harness.make_meta(**WIRE_META, wire_codec=wire_codec)
+
+
+def median_ms(rows: list, key: str) -> float:
+    vals = [r[key] for r in rows]
+    return statistics.median(vals) if vals else float("nan")
+
+
+def landing_split(stats) -> str:
+    """The landing loop's median host ms per landing by step, a flush's
+    landing apart, and per dispatch."""
+    plain = [r for r in stats.landing_ms if not r["flush"]]
+    flush = [r for r in stats.landing_ms if r["flush"]]
+    return (f"per landing (median of {len(stats.landing_ms)}): d2h {median_ms(stats.landing_ms, 'd2h'):.1f}, "
+            f"decode {median_ms(stats.landing_ms, 'decode'):.1f}, h2d {median_ms(stats.landing_ms, 'h2d'):.1f}, "
+            f"land {median_ms(plain, 'land'):.2f} (no flush), land with the flush "
+            f"{median_ms(flush, 'land'):.2f}; per dispatch (median of {len(stats.dispatch_ms)}): d2h "
+            f"{median_ms(stats.dispatch_ms, 'd2h'):.1f}, encode {median_ms(stats.dispatch_ms, 'encode'):.1f}, "
+            f"send {median_ms(stats.dispatch_ms, 'send'):.1f} ms")
+
+
+def wire_replayed(res, dev, tol: float, tag: str) -> float:
+    """Replay the run's recorded schedule in process on the card; hold its
+    global to the run's (bitwise when ``tol`` is 0). -> the max abs gap."""
+    from repro_torch.core.transport import replay as rp
+
+    rep = rp.replay(res.schedule, device=dev)
+    torch.cuda.synchronize()
+    got = rep.global_packed_row().cpu()
+    want = torch.from_numpy(res.global_row)
+    gap = float((got - want).abs().max())
+    check(torch.isfinite(got).all(), f"{tag}: non-finite replayed global")
+    if tol == 0.0:
+        check(same_bits(got, want), f"{tag}: replayed global != the run's, gap {gap:.3e}")
+    else:
+        check(gap <= tol, f"{tag}: replayed global gap {gap:.3e} > {tol}")
+    check([r.participants for r in rep.history] == [r.participants for r in res.history],
+          f"{tag}: replayed flushes differ")
+    del rep
+    return gap
+
+
+def phase13a(dev, card: str) -> dict:
+    """The socket runs of ``WIRE_13A`` at qwen3-1.7b's full width (2
+    layers): 3 flushes each from 2 worker processes of 2 clients each, K1
+    once a flush in the server, the recorded schedule replayed on the card
+    to the run's global (bitwise where the tolerance is 0); then K1 at a
+    flush's shape against its plain version, bitwise. -> K1's launches,
+    its error and device time there, and the runs' readings."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import packing
+    from repro_torch.core.transport import codec, harness, wire
+    from repro_torch.core.transport import replay as rp
+    from repro_torch.kernels import pack, ref
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()  # the worker processes need what earlier phases cached
+    cfg = rp.build_cfg(wire_meta("dense"))
+    spec = packing.build_pack_spec(cfg, T.template(cfg))
+    n = spec.n_total
+    base = get_arch("qwen3-1.7b")
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)
+          == (base.d_model, base.n_heads, base.n_kv_heads, base.d_ff, base.vocab_size)
+          and cfg.n_layers == 2, "phase13 meta is not qwen3-1.7b's full width at 2 layers")
+    frame = wire.HEADER_BYTES + 1 + 8 + codec.payload_bytes(n, "dense")
+    check(frame <= wire.MAX_FRAME, f"phase13 dispatch frame {frame} > MAX_FRAME")
+    print(f"phase13a N={n} (qwen3-1.7b, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, 2 layers); a dispatch frame is {frame} bytes "
+          f"of MAX_FRAME {wire.MAX_FRAME} ({frame / wire.MAX_FRAME:.3f}); quant8 update "
+          f"{codec.payload_bytes(n, 'quant8')} bytes  [{card}]", flush=True)
+    out = {"n": n, "runs": {}}
+    for wire_codec, tol in WIRE_13A:
+        meta = wire_meta(wire_codec)
+        torch.cuda.reset_peak_memory_stats()
+        pack.packed_bucket_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = harness.wire_run(meta, WIRE_FLUSHES, worker_groups=WIRE_GROUPS,
+                               deadline_s=WIRE_DEADLINE_S, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = pack.packed_bucket_reduce.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = res.stats
+        check(not st.deadline_hit and st.flushes == WIRE_FLUSHES,
+              f"phase13a {wire_codec}: {st.flushes} flushes, deadline hit {st.deadline_hit}: "
+              f"{res.worker_stderr}")
+        check(launches == st.flushes, f"phase13a {wire_codec}: K1 launched {launches} times in "
+                                      f"{st.flushes} flushes")
+        check(np.isfinite(res.global_row).all() and res.global_row.shape == (n,),
+              f"phase13a {wire_codec}: bad global row")
+        gap = wire_replayed(res, dev, tol, f"phase13a {wire_codec}")
+        lands = st.landed + res.dropped_total
+        print(f"phase13a {wire_codec}: {st.flushes} flushes in {secs:.2f} s ({lands / secs:.4f} "
+              f"landings/s), {st.landed} landed, {res.dropped_total} dropped, bytes up {st.bytes_up} "
+              f"(an update's payload {codec.payload_bytes(n, wire_codec)}; uploads in flight at the "
+              f"end count too), down {st.bytes_down}, losses "
+              f"{[round(r.loss, 4) for r in res.history]}; K1 {launches} launches; replayed on the "
+              f"card: global gap {gap:.3e} ({'bitwise' if tol == 0 else f'held <= {tol}'}); server "
+              f"peak device memory {peak:.2f} GiB  [{card}]", flush=True)
+        print(f"phase13a {wire_codec} landing loop host ms: {landing_split(st)}  [{card}]",
+              flush=True)
+        out["runs"][wire_codec] = {"launches": launches, "seconds": secs, "landings": lands,
+                                   "bytes_up": st.bytes_up}
+        del res
+    # K1 at the flush's shape, 4 rows of N with the run's bucket ids and the
+    # staged pair weighted, bitwise against its plain version
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, n), generator=g, device=dev)
+    wm = torch.rand((4, spec.n_buckets), generator=g, device=dev)
+    ids = packing.bucket_ids_on(spec, dev)
+    mask = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev)
+    kern = pack.packed_bucket_reduce(x, wm, ids, mask)
+    plain = ref.packed_bucket_reduce(x, wm, ids, mask)
+    torch.cuda.synchronize()
+    out["max_abs_err"] = 0.0
+    for name, a, b in zip(("num", "den"), kern, plain):
+        check(same_bits(a, b), f"phase13a K1 at (4, {n}): kernel {name} != plain")
+        out["max_abs_err"] = max(out["max_abs_err"], float((a - b).abs().max()))
+    del kern, plain
+    out["device_ms"], out["device_ms_from"] = device_ms(
+        lambda: pack.packed_bucket_reduce(x, wm, ids, mask), "bucket_reduce_kernel")
+    out["bound_ms"], out["bound_by"] = reduce_bound_ms(4, n, spec.n_buckets)
+    print(f"phase13a K1 at a flush's shape (4, {n}), {spec.n_buckets} buckets: bitwise-equal its "
+          f"plain version; device {out['device_ms']:.4f} ms ({out['device_ms_from']}) against a "
+          f"{out['bound_ms']:.4f} ms bound ({out['bound_by']}; {out['bound_ms'] / out['device_ms']:.3f} "
+          f"of it)  [{card}]", flush=True)
+    del x, wm, ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase13b(dev, card: str) -> int:
+    """The dense socket run at full width, snapshotted after 4 landings,
+    its server killed after 5 and restored from the snapshot and the WAL on
+    the same port, 3 flushes; the WAL's schedule replays to the recovered
+    run's global bitwise. -> K1's server-side launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.transport import codec, harness
+    from repro_torch.kernels import pack
+
+    root = Path(tempfile.mkdtemp(prefix="fedwire_durable_"))
+    try:
+        pack.packed_bucket_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = harness.wire_run(wire_meta("dense"), WIRE_FLUSHES,
+                               worker_groups=[dict(g, extra=g["extra"] + WIRE_PATIENT)
+                                              for g in WIRE_GROUPS],
+                               deadline_s=WIRE_DEADLINE_S, durable_root=root / "run",
+                               snapshot_every=WIRE_SNAPSHOT_EVERY, fault_plan=WIRE_KILL,
+                               device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = pack.packed_bucket_reduce.launches
+        st = res.stats
+        check(not st.deadline_hit and st.flushes == WIRE_FLUSHES,
+              f"phase13b: {st.flushes} flushes, deadline hit {st.deadline_hit}: {res.worker_stderr}")
+        check(res.recovered and st.crashed and st.recoveries == 1,
+              f"phase13b: recovered {res.recovered}, crashed {st.crashed}, "
+              f"recoveries {st.recoveries}")
+        # the recovery's replay of the WAL past the snapshot flushes again
+        pre = res.pre_crash_stats.wal_events
+        refl = sum(1 for e in res.schedule.events[pre - res.events_replayed: pre] if e.flush >= 0)
+        check(launches == WIRE_FLUSHES + refl, f"phase13b: K1 launched {launches} times in "
+                                               f"{WIRE_FLUSHES} flushes and {refl} replayed in "
+                                               f"the recovery")
+        gap = wire_replayed(res, dev, 0.0, "phase13b")
+        snaps = "; ".join(f"{s['bytes']} bytes in {s['ms'] / 1e3:.2f} s" for s in st.snapshot_ms)
+        print(f"phase13b {WIRE_KILL} and restore: {st.flushes} flushes in {secs:.2f} s, {st.landed} "
+              f"landed; snapshots: {snaps}; recovery {res.recovery_s:.2f} s replaying "
+              f"{res.events_replayed} WAL events past the snapshot ({refl} flushes; "
+              f"{st.wal_events} events journaled); K1 {launches} launches; the WAL's schedule "
+              f"replayed on the card: gap "
+              f"{gap:.3e} (bitwise)  [{card}]", flush=True)
+        print(f"phase13b dense: bytes up {st.bytes_up} (an update's payload "
+              f"{codec.payload_bytes(res.global_row.size, 'dense')}), down {st.bytes_down}, "
+              f"{(st.landed + res.dropped_total) / secs:.4f} landings/s; landing loop host ms: "
+              f"{landing_split(st)}  [{card}]", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase13c(dev, card: str) -> None:
+    """The launcher's socket path at the reduced size: a quant8 run that
+    records its schedule, the replay of it, a durable run killed at 5
+    landings, and the restore; each exits cleanly with the reference's
+    keys."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    root = Path(tempfile.mkdtemp(prefix="fedwire_launcher_"))
+    common = ["--arch", "qwen3-1.7b", "--mode", "async", "--transport", "socket", "--clients", "4",
+              "--buffer-size", "2", "--max-staleness", "2", "--batch", "2", "--seq", "16"]
+    try:
+        t0 = time.perf_counter()
+        run = train.main([*common, "--rounds", "3", "--wire-codec", "quant8",
+                          "--record-schedule", str(root / "run.schedule.json")])
+        rep = train.main(["--replay-schedule", str(root / "run.schedule.json")])
+        kill = train.main([*common, "--rounds", "4", "--durable-dir", str(root / "durable"),
+                           "--snapshot-every", "2", "--fault-plan", "kill@5"])
+        back = train.main(["--restore", str(root / "durable")])
+        secs = time.perf_counter() - t0
+        check(run["rounds"] == 3 and not run["deadline_hit"] and set(run) >= set(WIRE_RUN_KEYS),
+              f"phase13c socket run: {run}")
+        check(rep["flushes"] == 3 and rep["deterministic"]
+              and abs(rep["final_loss"] - run["final_loss"]) <= 1e-5 * abs(run["final_loss"]),
+              f"phase13c replay: {rep} against {run}")
+        check(kill["recovered"] and kill["rounds"] == 4 and not kill["deadline_hit"],
+              f"phase13c durable run: {kill}")
+        check(back["version"] == 4 and set(back) >= set(WIRE_RESTORE_KEYS),
+              f"phase13c restore: {back}")
+        print(f"phase13c launcher (reduced qwen3-1.7b, 4 clients, one worker process): socket "
+              f"quant8 3 flushes, {run['landed']} landed, bytes up {run['bytes_up']}; replayed "
+              f"deterministically; kill@5 recovered ({kill['snapshots']} snapshots, "
+              f"{kill['wal_events']} WAL events); restore at version {back['version']} replaying "
+              f"{back['events_replayed']} events; {secs:.2f} s in all  [{card}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
+    t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:  # the script runs against a 1200 s limit
+        print(f"{phase} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     from repro_torch import device as D
     from repro_torch.configs import get_arch
     from repro_torch.core import detection, serving
@@ -2557,9 +2838,11 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 2: kernel vs plain on the card ---------------------------
+    mark("phase 2")
     n_cases = phase2(dev, card)
 
     # ---- phase 3: the detection service at full width -------------------
+    mark("phase 3")
     cfg, fed, model, imgs = served_model(dev)
     n_params = sum(p.numel() for p in model.parameters())
     slot = serving.ModelSlot()
@@ -2694,6 +2977,7 @@ def main() -> None:
           f"nms_plain_ms={nms_stats['plain_ms']:.5f}  [{card}]", flush=True)
 
     # ---- phases 4 and 5: the training path's kernels and the path -------
+    mark("phase 4")
     k_stats = phase4(dev, card)
     floor_ms, floor_from = nms_stats["launch_floor_ms"], nms_stats["launch_floor_ms_from"]
     print(f"phase4 launch floor (a one-element kernel, phase 3): device_ms={floor_ms} "
@@ -2702,14 +2986,17 @@ def main() -> None:
     train_launches = phase5(dev, card)
 
     # ---- phases 6 and 7: the uplink's kernels and its modes --------------
+    mark("phase 6")
     k_stats.update(phase6(dev, card))
     uplink_launches, uplink_buffer = phase7(dev, card)
 
     # ---- phases 8 and 9: the LM kernels and the LM serve path ------------
+    mark("phase 8")
     k_stats.update(phase8(dev, card))
     lm_launches = phase9(dev, card)
 
     # ---- phase 10: K11, gradients through K9/K10, LM training, the demo ---
+    mark("phase 10")
     from repro_torch.core import packing
     from repro_torch.models import transformer as T
     qcfg = get_arch("qwen3-1.7b")
@@ -2720,6 +3007,7 @@ def main() -> None:
     lm_train = phase10de(dev, card)
 
     # ---- phase 11: the row and block quantizers, compact, fedsgd ---------
+    mark("phase 11")
     k_stats.update(phase11a(dev, card))
     phase11b(dev, card, uplink_buffer)
     del uplink_buffer
@@ -2727,9 +3015,17 @@ def main() -> None:
     phase11d(dev, card)
 
     # ---- phase 12: the async control plane --------------------------------
+    mark("phase 12")
     async_launches = phase12a(dev, card)
     phase12b(dev, card)
     async_launches.update({f"arrival_{k}": v for k, v in phase12c(dev, card).items()})
+
+    # ---- phase 13: the wire at full width ----------------------------------
+    mark("phase 13")
+    wire13 = phase13a(dev, card)
+    wire_launches = {f"socket_{k}": v["launches"] for k, v in wire13["runs"].items()}
+    wire_launches["kill_restore"] = phase13b(dev, card)
+    phase13c(dev, card)
 
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
@@ -2758,7 +3054,14 @@ def main() -> None:
               launches_demo=lm_train["packed_bucket_reduce_demo"],
               launches_async={**async_launches, "main_path": f"phase 12: {ASYNC_FLUSHES} "
                               f"buffered flushes, {ASYNC_LAUNCHER_FLUSHES} through the launcher, "
-                              f"5 landing flushes per codec"}),
+                              f"5 landing flushes per codec"},
+              launches_wire={**wire_launches, "main_path": f"phase 13: the WireServer's "
+                             f"landing flushes at qwen3-1.7b full width, 2 layers (N = "
+                             f"{wire13['n']}), {WIRE_FLUSHES} under quant8, {WIRE_FLUSHES} "
+                             f"dense across a kill and restore (plus the flushes its recovery "
+                             f"replays)"},
+              wire_max_abs_err=wire13["max_abs_err"], wire_device_ms=wire13["device_ms"],
+              wire_device_ms_from=wire13["device_ms_from"], wire_bound_ms=wire13["bound_ms"]),
         entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
               k_stats["pairwise_iou"], launch_floor_ms=floor_ms, launch_floor_ms_from=floor_from),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],
@@ -2801,6 +3104,7 @@ def main() -> None:
 
     if dist.is_initialized():  # the launcher's one-rank client group
         dist.destroy_process_group()
+    mark("the summary")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

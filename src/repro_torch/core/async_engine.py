@@ -512,7 +512,9 @@ class ArrivalAsyncEngine:
             "dispatch_version": self.dispatch_version.copy(),
         }
         for i, leaf in enumerate(agg_leaves):
+            # a host int leaf (a round counter) is the reference's int32 scalar
             arrays[f"agg_{i}"] = (leaf.cpu().numpy().copy() if isinstance(leaf, torch.Tensor)
+                                  else np.asarray(leaf, np.int32) if isinstance(leaf, int)
                                   else np.asarray(leaf))
         scalars = {
             "round": int(self.state["round"]),

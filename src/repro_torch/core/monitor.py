@@ -1,12 +1,13 @@
 """Round-monitoring view (port of ``repro/core/monitor.py``: ``sparkline``,
-``top_clients``, ``render_task``; paper Fig. 9, "Monitoring multiple rounds
-of federated model training on FedVision").
+``top_clients``, ``render_task``, ``render_wire``; paper Fig. 9,
+"Monitoring multiple rounds of federated model training on FedVision").
 
 Renders per-task progress — round, loss sparkline, participation, mAP —
 as the text analogue of the platform's dashboard. Per-client detail is
 capped at a top-k (``top_clients``). An async history (``AsyncRoundRecord``)
 adds the simulated clock, the staleness trajectory and the dropped count.
-The wire, serving and JSON views belong to slices 5 and 6.
+The wire view adds the socket transport's counters. The serving and JSON
+views belong to slice 6.
 """
 from __future__ import annotations
 
@@ -84,5 +85,40 @@ def render_task(task_id: str, history, n_clients: int, upload_bytes_per_round: f
         lines.append(
             f"  upload   {upload_bytes_per_round / 1e6:.2f} MB/client/round "
             f"({upload_bytes_per_round * parts / 1e6:.2f} MB total)"
+        )
+    return "\n".join(lines)
+
+
+def render_wire(task_id: str, history, stats, n_clients: int, liveness_log=()) -> str:
+    """The socket-transport lines (DESIGN.md §14): the round view plus the
+    wire's own operational counters — landings/drops, reconnects, dead-peer
+    detections, uplink/downlink bytes, and landing-queue backpressure."""
+    lines = [render_task(task_id, history, n_clients)]
+    deaths = sum(1 for _, _, s in liveness_log if s == "dead")
+    lines.append(
+        f"  wire     {stats.flushes} flushes   {stats.landed} landed"
+        f" / {stats.dropped} dropped   {stats.reconnects} reconnects"
+        f"   {deaths} dead-peer events"
+    )
+    lines.append(
+        f"  bytes    up {stats.bytes_up / 1e6:.2f} MB   down {stats.bytes_down / 1e6:.2f} MB"
+        f"   heartbeats {stats.heartbeats}"
+    )
+    lines.append(
+        f"  queue    high water {stats.queue_high_water}"
+        f"   backpressure blocks {stats.backpressure_blocks}"
+        f"   protocol errors {stats.protocol_errors}"
+        f"   superseded {stats.superseded}"
+        + ("   DEADLINE HIT" if stats.deadline_hit else "")
+    )
+    # the durability/chaos line (DESIGN.md §16) only appears when any of it
+    # happened — plain runs keep the compact three-line summary
+    if (stats.crc_errors or stats.snapshots or stats.wal_events
+            or stats.recoveries or stats.faults_injected or stats.crashed):
+        lines.append(
+            f"  durable  {stats.snapshots} snapshots   {stats.wal_events} WAL events"
+            f"   {stats.recoveries} recoveries   crc errors {stats.crc_errors}"
+            f"   faults injected {stats.faults_injected}"
+            + ("   CRASHED" if stats.crashed else "")
         )
     return "\n".join(lines)

@@ -1,9 +1,10 @@
 """Row payload codec: the bytes inside DISPATCH/UPDATE frames (DESIGN.md §14).
 
-A copy of ``repro/core/transport/codec.py`` (pure NumPy; the port never
+A port of ``repro/core/transport/codec.py`` (pure NumPy; the port never
 imports the JAX package): the same row gives the same bytes in both
 packages, so a schedule recorded against either replays through the
-port's engine.
+port's engine. A dense row is copied once into its payload (the
+reference copies it three times).
 
 Four codecs, selected by ``FedConfig.wire_codec``:
 
@@ -78,7 +79,10 @@ def encode_dense(row) -> bytes:
     if row.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported row dtype {row.dtype}")
     hdr = _DENSE_HDR.pack(_DTYPE_CODES[row.dtype], row.size)
-    return bytes([DENSE]) + hdr + row.astype(row.dtype.newbyteorder("<")).tobytes()
+    # little-endian and contiguous without a copy where the row already is;
+    # the one copy is the join
+    data = np.ascontiguousarray(row, row.dtype.newbyteorder("<"))
+    return b"".join((bytes([DENSE]), hdr, memoryview(data).cast("B")))
 
 
 def _decode_dense(buf: bytes) -> np.ndarray:

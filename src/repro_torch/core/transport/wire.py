@@ -1,10 +1,13 @@
 """Length-prefixed wire framing for the federation transport (DESIGN.md §14,
 crash-tolerance + CRC in §16).
 
-A copy of ``repro/core/transport/wire.py`` (pure Python + NumPy; the port
+A port of ``repro/core/transport/wire.py`` (pure Python + NumPy; the port
 never imports the JAX package). Frames stay byte-compatible with
 PROTOCOL_VERSION 3, so the reference's clients and servers talk to the
-port's.
+port's. Where the reference concatenates a frame's pieces and slices its
+body out of the receive buffer (three copies of a gigabyte row each way),
+the port copies the row once when it frames it and once when it parses
+it; the bytes are the same.
 
 One frame on the socket is::
 
@@ -97,14 +100,20 @@ HEADER_BYTES = _LEN.size + _CRC.size  # per-frame framing overhead before the bo
 MAX_FRAME = 1 << 31
 
 
-def encode_frame(ftype: int, payload: bytes = b"") -> bytes:
-    """One wire frame: length prefix + CRC32 + type byte + payload."""
+def encode_frame(ftype: int, payload: bytes = b"", *more: bytes) -> bytes:
+    """One wire frame: length prefix + CRC32 + type byte + payload, the
+    payload being ``payload`` followed by ``more`` (joined once, into the
+    frame)."""
     if ftype not in FRAME_TYPES:
         raise ValueError(f"unknown frame type {ftype}")
-    body = bytes([ftype]) + payload
-    if len(body) > MAX_FRAME:
-        raise ValueError(f"frame of {len(body)} bytes exceeds MAX_FRAME")
-    return _LEN.pack(len(body)) + _CRC.pack(zlib.crc32(body)) + body
+    parts = (bytes([ftype]), payload, *more)
+    n = sum(memoryview(p).nbytes for p in parts)
+    if n > MAX_FRAME:
+        raise ValueError(f"frame of {n} bytes exceeds MAX_FRAME")
+    crc = 0
+    for p in parts:
+        crc = zlib.crc32(p, crc)
+    return b"".join((_LEN.pack(n), _CRC.pack(crc), *parts))
 
 
 class FrameParser:
@@ -142,17 +151,22 @@ class FrameParser:
             if len(self._buf) < HEADER_BYTES + n:
                 return frames
             (crc,) = _CRC.unpack_from(self._buf, _LEN.size)
-            body = bytes(self._buf[HEADER_BYTES : HEADER_BYTES + n])
+            # read the body in place; copy only the payload of a good frame
+            with memoryview(self._buf) as view:
+                body = view[HEADER_BYTES : HEADER_BYTES + n]
+                good = zlib.crc32(body) == crc
+                ftype = body[0]
+                payload = bytes(body[1:]) if good else b""
+                body.release()
             del self._buf[: HEADER_BYTES + n]
-            if zlib.crc32(body) != crc:
+            if not good:
                 # corruption detected: withhold the frame, keep the stream
                 # position (the length prefix still told us where it ended)
                 self.crc_errors += 1
                 continue
-            ftype = body[0]
             if ftype not in FRAME_TYPES:
                 raise ValueError(f"unknown frame type {ftype}")
-            frames.append((ftype, body[1:]))
+            frames.append((ftype, payload))
 
 
 # -- message payloads --------------------------------------------------------
@@ -169,7 +183,7 @@ def parse_hello(payload: bytes) -> int:
 
 
 def pack_dispatch(version: int, row_payload: bytes) -> bytes:
-    return encode_frame(DISPATCH, _DISPATCH.pack(version) + row_payload)
+    return encode_frame(DISPATCH, _DISPATCH.pack(version), row_payload)
 
 
 def parse_dispatch(payload: bytes) -> tuple[int, bytes]:
@@ -179,9 +193,7 @@ def parse_dispatch(payload: bytes) -> tuple[int, bytes]:
 
 def pack_update(client_id: int, seq: int, version: int, loss: float,
                 row_payload: bytes) -> bytes:
-    return encode_frame(
-        UPDATE, _UPDATE.pack(client_id, seq, version, loss) + row_payload
-    )
+    return encode_frame(UPDATE, _UPDATE.pack(client_id, seq, version, loss), row_payload)
 
 
 def parse_update(payload: bytes) -> tuple[int, int, int, float, bytes]:

@@ -20,6 +20,12 @@
       --rounds 3 --mode async --stream --clients 8 --buffer-size 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --replay-schedule run.schedule.json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --mode async \\
+      --transport socket --clients 4 --buffer-size 2 --rounds 3 \\
+      --wire-codec quant8 --record-schedule "$TMPDIR"/run.schedule.json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --mode async \\
+      --transport socket --durable-dir "$TMPDIR"/run --snapshot-every 2 --fault-plan kill@5
+  PYTHONPATH=src python -m repro_torch.launch.train --restore "$TMPDIR"/run
 
 Runs the paper's federated detection workload: FedYOLOv3 over a
 partitioned synthetic scene pool, the Task Scheduler and the Explorer's
@@ -57,9 +63,18 @@ than ``--max-staleness`` dropped and counted; ``--rounds`` counts flushes.
 ``--stream`` takes the streaming flush (a ring of global rows and a running
 sum, O(buffer · N) memory; it forces ``--agg dense`` and a stateless sgd).
 ``--replay-schedule`` replays a recorded arrival schedule (JSON) through
-the arrival engine and exits. ``--transport socket``, ``--record-schedule``
-and ``--restore`` (the multi-process wire and its durability) are slice 5
-and raise.
+the arrival engine and exits.
+
+``--transport socket`` runs a real multi-process federation (DESIGN.md
+§14): worker processes (``repro_torch.launch.worker``) train on
+``--device`` and upload over TCP, and the landing loop feeds the arrival
+engine in wall-clock order; ``--rounds`` counts flushes, ``--wire-codec``
+picks the uplink encoding and ``--record-schedule`` writes the recorded
+arrival schedule. ``--durable-dir`` journals every landing-loop event and
+snapshots the engine every ``--snapshot-every`` landings; with
+``--fault-plan kill@M`` the server is killed after M landings and recovers
+from the snapshot and the journal on the same port. ``--restore`` rebuilds
+the engine from such a directory and reports what came back.
 """
 from __future__ import annotations
 
@@ -128,12 +143,32 @@ def build_parser() -> argparse.ArgumentParser:
                     "stateless sgd local optimizer)")
     ap.add_argument("--max-staleness", type=int, default=0,
                     help="async: drop updates staler than this many versions (0 -> keep all)")
-    ap.add_argument("--transport", default="inproc", choices=["inproc", "socket"])
+    ap.add_argument("--transport", default="inproc", choices=["inproc", "socket"],
+                    help="inproc: simulated clients in this process; socket: real worker "
+                    "processes over TCP (needs --mode async; --rounds counts flushes)")
+    ap.add_argument("--wire-codec", default="dense",
+                    choices=["dense", "quant8", "quant4", "topk"],
+                    help="socket: UPDATE payload encoding (dense f32 rows, int8 or 4-bit "
+                    "block-quantized deltas, or sparse top-k deltas; transport/codec.py)")
     ap.add_argument("--record-schedule", default="",
-                    help="socket: write the recorded arrival schedule (slice 5)")
+                    help="socket: write the recorded arrival schedule (JSON) here")
     ap.add_argument("--replay-schedule", default="",
                     help="replay a recorded arrival schedule through the arrival engine and exit")
-    ap.add_argument("--restore", default="", help="durable-run recovery (slice 5)")
+    ap.add_argument("--durable-dir", default="",
+                    help="socket: durable run directory (landing WAL + engine snapshots; the "
+                    "server survives a kill)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="socket: full-engine snapshot every N landings (0 = WAL only; needs "
+                    "--durable-dir)")
+    ap.add_argument("--fault-plan", default="",
+                    help="socket: deterministic fault injection spec (transport/faults.py "
+                    "grammar, e.g. 'client.corrupt@2:update;kill@6'); with --durable-dir a "
+                    "kill@M recovers from snapshot + WAL")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="socket: seed for the fault plan's deterministic choices")
+    ap.add_argument("--restore", default="",
+                    help="recover an engine from a --durable-dir directory, print the recovery "
+                    "report and exit")
     ap.add_argument("--participation", default="full", choices=["full", "masked", "compact"])
     ap.add_argument("--max-participants", type=int, default=0,
                     help="scheduler budget per round (0 -> clients//2, min 2)")
@@ -181,16 +216,27 @@ class TrainRun:
     summary: dict[str, Any]
 
 
+def _check_socket(args) -> None:
+    """The reference launcher's checks of the socket flags."""
+    if args.snapshot_every and not args.durable_dir:
+        raise ValueError("--snapshot-every needs --durable-dir")
+    if (args.durable_dir or args.fault_plan) and args.transport != "socket":
+        raise ValueError("--durable-dir/--fault-plan belong to --transport socket")
+    if args.transport == "socket":
+        if args.mode != "async":
+            raise ValueError("--transport socket is the async control plane over a real wire; "
+                             "pass --mode async")
+        if args.stream or args.task == "detection":
+            raise ValueError("--transport socket runs the buffered arrival engine (lm "
+                             "workload, no --stream)")
+        if args.arch is None:
+            raise ValueError("--arch is required")
+
+
 def _check_ported(args) -> None:
-    """Refuse what the port does not run yet, and the reference launcher's
-    invalid flag combinations; apply its ``--stream`` coercions."""
-    if args.restore:
-        raise NotImplementedError("--restore (durable-run recovery) is slice 5")
-    if args.transport != "inproc":
-        raise NotImplementedError("--transport socket (the multi-process wire) is slice 5")
-    if args.record_schedule:
-        raise NotImplementedError("--record-schedule (the socket run's recorded schedule) is "
-                                  "slice 5")
+    """Refuse the reference launcher's invalid flag combinations; apply its
+    ``--stream`` coercions."""
+    _check_socket(args)
     if args.mode == "async" and args.participation != "full":
         raise ValueError("--mode async owns its own participation plane (the event queue); "
                          "drop --participation")
@@ -349,6 +395,85 @@ def replay_schedule(args) -> dict[str, Any]:
     }
 
 
+def run_socket(args, log=lambda m: print(m, flush=True)) -> dict[str, Any]:
+    """``--transport socket``: a real multi-process federation on
+    ``--device`` (``harness.wire_run``), then the wire summary (logged) and
+    the reference's JSON keys; writes the recorded schedule to
+    ``--record-schedule``."""
+    from repro_torch.core.transport import harness
+
+    _check_socket(args)
+    dev = D.resolve(args.device)
+    meta = harness.make_meta(
+        args.arch,
+        reduced=not args.full_size,
+        n_clients=args.clients,
+        buffer_size=args.buffer_size,
+        max_staleness=args.max_staleness,
+        staleness_alpha=args.staleness_alpha,
+        aggregation=args.agg if args.agg != "eq6" else "dense",
+        local_steps=args.local_steps,
+        batch=args.batch,
+        seq=args.seq,
+        seed=args.seed,
+        lr=args.lr,
+        wire_codec=args.wire_codec,
+    )
+    res = harness.wire_run(
+        meta, args.rounds,
+        durable_root=args.durable_dir or None,
+        snapshot_every=args.snapshot_every,
+        fault_plan=args.fault_plan,
+        fault_seed=args.fault_seed,
+        device=dev,
+    )
+    if args.record_schedule:
+        res.schedule.save(args.record_schedule)
+    log(monitor.render_wire(args.arch, res.history, res.stats, args.clients,
+                            liveness_log=res.liveness_log))
+    stal = [s for r in res.history for s in r.staleness]
+    return {
+        "final_loss": res.history[-1].loss if res.history else float("nan"),
+        "rounds": len(res.history),
+        "mode": "async",
+        "transport": "socket",
+        "wire_codec": args.wire_codec,
+        "landed": res.stats.landed,
+        "dropped": res.dropped_total,
+        "mean_staleness": (sum(stal) / len(stal)) if stal else 0.0,
+        "bytes_up": res.stats.bytes_up,
+        "bytes_down": res.stats.bytes_down,
+        "deadline_hit": res.stats.deadline_hit,
+        "recovered": res.recovered,
+        "snapshots": res.stats.snapshots,
+        "wal_events": res.stats.wal_events,
+        "crc_errors": res.stats.crc_errors,
+        "faults_injected": res.stats.faults_injected,
+        "device": _device_name(dev),
+    }
+
+
+def restore(args) -> dict[str, Any]:
+    """``--restore``: recover an engine on ``--device`` from a durable run
+    directory (the newest valid snapshot, then the WAL suffix through the
+    row update) and report what came back."""
+    from repro_torch.checkpoint.durable import DurableRun
+
+    dev = D.resolve(args.device)
+    run = DurableRun(args.restore)
+    engine, replayed = run.recover_engine(device=dev)
+    return {
+        "restored_from": str(args.restore),
+        "wal_events": run.n_events,
+        "events_replayed": replayed,
+        "version": engine.version,
+        "flushes_recovered": len(engine.history),
+        "staged_window": list(engine.staged()),
+        "final_loss": engine.history[-1].loss if engine.history else float("nan"),
+        "device": _device_name(dev),
+    }
+
+
 def train_lm(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     """Federated LM training for parsed ``args``: qwen3-1.7b (dense) or
     mamba2-1.3b (ssm), reduced unless ``--full-size``, with the kernel
@@ -430,6 +555,10 @@ def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
     if args.replay_schedule:
         summary = replay_schedule(args)
+    elif args.restore:
+        summary = restore(args)
+    elif args.transport == "socket":
+        summary = run_socket(args)
     else:
         summary = (train_lm(args) if resolve_task(args) == "lm" else train_detection(args)).summary
     print(json.dumps(summary), flush=True)

@@ -484,11 +484,93 @@ def test_launcher_trains_evaluates_checkpoints_and_serves(tmp_path, capsys):
     assert '"final_loss"' in out.splitlines()[-1]
 
 
-# --mode async and --replay-schedule are ported (tests/test_torch_async.py,
-# tests/test_torch_replay.py); the socket wire and its durability are slice 5
+# the launcher's socket wire and its durability (slice 5), on the host: a
+# run of the reduced qwen3-1.7b over 2 worker processes' clients, each with
+# one intra-op thread
+SOCKET_RUN = ["--device", "cpu", "--arch", "qwen3-1.7b", "--clients", "2", "--buffer-size", "1",
+              "--rounds", "2", "--batch", "1", "--seq", "8"]
+
+
+def _reference_json_keys(function: str) -> set:
+    """The keys of the JSON dict the reference launcher's ``function``
+    prints, read from its source (running it would start JAX workers)."""
+    import ast
+    import inspect
+
+    from repro.launch import train as jtrain
+
+    tree = ast.parse(inspect.getsource(getattr(jtrain, function)))
+    return {k.value for node in ast.walk(tree) if isinstance(node, ast.Dict) for k in node.keys}
+
+
 @pytest.mark.parametrize("flags", [["--mode", "async", "--transport", "socket"],
                                    ["--transport", "socket"], ["--restore", "x"],
-                                   ["--mode", "async", "--record-schedule", "x"]])
-def test_launcher_paths_of_later_slices_raise(flags):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        train.main(["--device", "cpu", "--rounds", "1", *flags])
+                                   ["--mode", "async", "--record-schedule", "x"]],
+                         ids=["socket", "socket-needs-async", "restore", "record-inproc"])
+def test_launcher_paths_of_slice_5(flags, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    record = tmp_path / "run.schedule.json"
+    if flags == ["--transport", "socket"]:  # the reference's ap.error, as a ValueError
+        with pytest.raises(ValueError, match="pass --mode async"):
+            train.main(["--device", "cpu", *flags])
+        return
+    if flags[0] == "--restore":
+        durable = tmp_path / "run"
+        run = train.main([*SOCKET_RUN, "--mode", "async", "--transport", "socket", "--rounds", "3",
+                          "--durable-dir", str(durable), "--snapshot-every", "1",
+                          "--fault-plan", "kill@2"])
+        assert run["recovered"] and run["rounds"] == 3 and not run["deadline_hit"]
+        assert "CRASHED" in capsys.readouterr().out
+        got = train.main(["--device", "cpu", "--restore", str(durable)])
+        assert set(got) == _reference_json_keys("_restore") | {"device"}
+        assert got["version"] == 3 and got["wal_events"] == run["wal_events"] > 0
+        assert got["events_replayed"] <= 1 and got["staged_window"] == []
+        return
+    if "--transport" not in flags:  # in process: the reference writes no schedule either
+        got = train.main([*SOCKET_RUN, *flags[:-2], "--record-schedule", str(record)])
+        assert got["mode"] == "async" and got["rounds"] == 2 and not record.exists()
+        return
+    got = train.main([*SOCKET_RUN, *flags, "--wire-codec", "quant8",
+                      "--record-schedule", str(record)])
+    out = capsys.readouterr().out
+    assert set(got) == _reference_json_keys("_run_socket") | {"device"}
+    assert (got["rounds"], got["landed"], got["wire_codec"]) == (2, 2, "quant8")
+    assert not got["deadline_hit"] and got["bytes_up"] > 0 and got["device"] == "cpu"
+    assert "  wire     2 flushes   2 landed / 0 dropped" in out
+    again = train.main(["--device", "cpu", "--replay-schedule", str(record)])
+    assert again["flushes"] == 2 and again["deterministic"]
+    np.testing.assert_allclose(again["final_loss"], got["final_loss"], rtol=1e-6)
+
+
+def test_launcher_parsers_take_the_reference_flags_and_defaults(monkeypatch):
+    """Every flag of the reference launcher with its default, choices and
+    type, apart from the port's ``--device`` and ``--seed`` and the
+    reference's ``--print-plan`` (launch tooling, ROADMAP slice 8)."""
+    import argparse
+    import sys
+
+    from repro.launch import train as jtrain
+
+    class Grabbed(Exception):
+        pass
+
+    def grab(self, args=None, namespace=None):
+        raise Grabbed(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        m.setattr(sys, "argv", ["train"])
+        with pytest.raises(Grabbed) as ei:
+            jtrain.main()
+    ref = ei.value.args[0]
+
+    def flags(parser):
+        return {a.option_strings[-1]: (a.dest, a.default, a.choices and list(a.choices), a.type,
+                                        a.nargs, a.const, type(a).__name__)
+                for a in parser._actions if a.dest != "help"}
+
+    ours, theirs = flags(train.build_parser()), flags(ref)
+    assert set(ours) - set(theirs) == {"--device", "--seed"}
+    assert set(theirs) - set(ours) == {"--print-plan"}
+    for k in set(ours) & set(theirs):
+        assert ours[k] == theirs[k], k
