@@ -218,6 +218,29 @@ recorded every launch made; where no trace does, the kernels line says
    ``--transport socket --wire-codec quant8 --record-schedule``, its
    ``--replay-schedule``, a ``--durable-dir`` run with ``--fault-plan
    kill@5``, and ``--restore``; each returns the reference's JSON keys.
+14. The multi-task platform (``core/{task_manager,client,secure_agg}.py``,
+   ``FLServer(clock=)``, ``examples/{multi_task_platform,quickstart}.py``).
+   (a) ``multi_task_platform.run_platform`` at full width: qwen3-1.7b at
+   its published widths cut to 2 layers (eq6 top-2, adamw 3e-3, C 3,
+   batch 2 x 128, 8 rounds) beside fedyolov3 (dense, sgd 1e-3, C 2, batch
+   8 of the per-step 416x416 scenes, 6 rounds) under one Task Manager, 3
+   ``FLClient``s with 2 reconnects each: 8 fair-share passes, both tasks
+   done, K1 once a round, both ``render_task`` views and ``export_json``
+   feeds (parsed back), ``explorer.monitor()``, the secure sidebar's gap to
+   the plain mean over the LM's 3 client trees at most 1e-3, ms per round
+   per task (CUDA events), peak memory at most 45 GiB; then K1 at both
+   tasks' shapes, (2, 13,312,864) and (3, 411,838,976) with their own
+   bucket ids, bitwise against its plain version. (b) One ``SimClock``
+   shared by a sync fedyolov3 server (3 rounds) and an async qwen3 server
+   (buffered eq6, C 3, a flush every 2 landings, 3 flushes) under
+   ``TaskManager(clock=).run_to_completion``: each step runs the task of
+   least ``(next_time(), task_id)``, the clock never goes back, a sync
+   round moves the clock and its load model by the same span, the flushes'
+   ``sim_time`` is sorted, K1 once a round or flush, an untimed task is
+   refused. (c) 14a's detector behind ``InferenceService``: 16 requests,
+   none dropped, K3 once a served batch, ``monitor.render_serving``. (d)
+   The quickstart at the reference's defaults with ``--rounds 5``: its
+   loss falls, K1 once a round.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -398,6 +421,18 @@ WIRE_RUN_KEYS = ("final_loss", "rounds", "mode", "transport", "wire_codec", "lan
                  "snapshots", "wal_events", "crc_errors", "faults_injected")
 WIRE_RESTORE_KEYS = ("restored_from", "wal_events", "events_replayed", "version",
                      "flushes_recovered", "staged_window", "final_loss")
+# 14: the multi-task platform at full width. The LM task is qwen3-1.7b at its
+# published widths with its depth cut to 2 layers (N = 411,838,976), as
+# phase 13 cuts it: the example's C = 3 under adamw at full depth needs 3
+# rows of 6.88 GB, twice that again for adamw's moments, and the gradients,
+# past the card's 80 GB. The detector is fedyolov3 at full width on the
+# per-step 416x416 scenes. 14b shares one clock between a sync detector
+# and an async LM; 14c serves 14a's detector; 14d runs the quickstart
+PLATFORM_LM_LAYERS, PLATFORM_LM_BATCH, PLATFORM_SEQ = 2, 2, 128
+PLATFORM_LM_ROUNDS, PLATFORM_YOLO_ROUNDS, PLATFORM_PASSES = 8, 6, 8
+PLATFORM_SECURE_TOL, PLATFORM_PEAK_GIB = 1e-3, 45.0
+CLOCK_SYNC_ROUNDS, CLOCK_FLUSHES = 3, 3
+PLATFORM_REQUESTS, PLATFORM_QUICKSTART_ROUNDS = 16, 5
 
 
 def fail(msg: str) -> None:
@@ -2626,6 +2661,38 @@ def wire_replayed(res, dev, tol: float, tag: str) -> float:
     return gap
 
 
+def k1_at(spec, C: int, dev, card: str, tag: str, mask: torch.Tensor | None = None) -> dict:
+    """K1 at a path's (C, N) with the path's own bucket ids (every row
+    taking part unless ``mask`` says otherwise), bitwise against its plain
+    version; its device ms beside its bound."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import pack, ref
+
+    n = spec.n_total
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((C, n), generator=g, device=dev)
+    wm = torch.rand((C, spec.n_buckets), generator=g, device=dev)
+    ids = packing.bucket_ids_on(spec, dev)
+    mask = torch.ones(C, device=dev) if mask is None else mask
+    kern = pack.packed_bucket_reduce(x, wm, ids, mask)
+    plain = ref.packed_bucket_reduce(x, wm, ids, mask)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("num", "den"), kern, plain):
+        check(same_bits(a, b), f"{tag} K1 at ({C}, {n}): kernel {name} != plain")
+        err = max(err, float((a - b).abs().max()))
+    del kern, plain
+    dms, dfrom = device_ms(lambda: pack.packed_bucket_reduce(x, wm, ids, mask), "bucket_reduce_kernel")
+    bound, by = reduce_bound_ms(C, n, spec.n_buckets)
+    print(f"{tag} K1 at ({C}, {n}), {spec.n_buckets} buckets: bitwise-equal its plain version; "
+          f"device {dms:.4f} ms ({dfrom}) against a {bound:.4f} ms bound ({by}; {bound / dms:.3f} "
+          f"of it)  [{card}]", flush=True)
+    del x, wm, ids
+    torch.cuda.empty_cache()
+    return {"shape": [C, n], "max_abs_err": err, "device_ms": dms, "device_ms_from": dfrom,
+            "bound_ms": bound, "bound_by": by}
+
+
 def phase13a(dev, card: str) -> dict:
     """The socket runs of ``WIRE_13A`` at qwen3-1.7b's full width (2
     layers): 3 flushes each from 2 worker processes of 2 clients each, K1
@@ -2637,7 +2704,7 @@ def phase13a(dev, card: str) -> dict:
     from repro_torch.core import packing
     from repro_torch.core.transport import codec, harness, wire
     from repro_torch.core.transport import replay as rp
-    from repro_torch.kernels import pack, ref
+    from repro_torch.kernels import pack
     from repro_torch.models import transformer as T
 
     torch.cuda.empty_cache()  # the worker processes need what earlier phases cached
@@ -2690,28 +2757,8 @@ def phase13a(dev, card: str) -> dict:
         del res
     # K1 at the flush's shape, 4 rows of N with the run's bucket ids and the
     # staged pair weighted, bitwise against its plain version
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((4, n), generator=g, device=dev)
-    wm = torch.rand((4, spec.n_buckets), generator=g, device=dev)
-    ids = packing.bucket_ids_on(spec, dev)
-    mask = torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev)
-    kern = pack.packed_bucket_reduce(x, wm, ids, mask)
-    plain = ref.packed_bucket_reduce(x, wm, ids, mask)
-    torch.cuda.synchronize()
-    out["max_abs_err"] = 0.0
-    for name, a, b in zip(("num", "den"), kern, plain):
-        check(same_bits(a, b), f"phase13a K1 at (4, {n}): kernel {name} != plain")
-        out["max_abs_err"] = max(out["max_abs_err"], float((a - b).abs().max()))
-    del kern, plain
-    out["device_ms"], out["device_ms_from"] = device_ms(
-        lambda: pack.packed_bucket_reduce(x, wm, ids, mask), "bucket_reduce_kernel")
-    out["bound_ms"], out["bound_by"] = reduce_bound_ms(4, n, spec.n_buckets)
-    print(f"phase13a K1 at a flush's shape (4, {n}), {spec.n_buckets} buckets: bitwise-equal its "
-          f"plain version; device {out['device_ms']:.4f} ms ({out['device_ms_from']}) against a "
-          f"{out['bound_ms']:.4f} ms bound ({out['bound_by']}; {out['bound_ms'] / out['device_ms']:.3f} "
-          f"of it)  [{card}]", flush=True)
-    del x, wm, ids
-    torch.cuda.empty_cache()
+    out.update(k1_at(spec, 4, dev, card, "phase13a",
+                     mask=torch.tensor([1.0, 1.0, 0.0, 0.0], device=dev)))
     return out
 
 
@@ -2806,6 +2853,251 @@ def phase13c(dev, card: str) -> None:
               f"{back['events_replayed']} events; {secs:.2f} s in all  [{card}]", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def platform_lm_cfg():
+    """qwen3-1.7b at its published widths, its depth cut to 2 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    base = get_arch("qwen3-1.7b")
+    return dataclasses.replace(base, n_layers=PLATFORM_LM_LAYERS)
+
+
+def prefixed(tag: str):
+    """A log that prints every line of a message behind ``tag``."""
+    def log(msg: str) -> None:
+        for line in str(msg).strip("\n").splitlines() or [""]:
+            print(f"{tag} {line}", flush=True)
+
+    return log
+
+
+def phase14a(dev, card: str) -> dict:
+    """The multi-task platform at full width through
+    ``examples.multi_task_platform.run_platform``; then K1 at both tasks'
+    shapes. -> K1's launches, its two shapes' readings, and the trained
+    detector (for 14c)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import explorer, monitor
+    from repro_torch.core.task_manager import TaskStatus
+    from repro_torch.examples import multi_task_platform as mtp
+    from repro_torch.kernels import flash_attention, pack
+
+    torch.cuda.empty_cache()
+    lm_cfg, ycfg = platform_lm_cfg(), get_arch("fedyolov3")
+    ms: dict[str, list[float]] = {"lm": [], "yolo": []}
+
+    def timer(tid, run):
+        rec, t = timed_flush(run)
+        ms[tid].append(t)
+        return rec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pack.packed_bucket_reduce.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = mtp.run_platform(lm_cfg, ycfg, device=dev, lm_batch=PLATFORM_LM_BATCH, seq=PLATFORM_SEQ,
+                           yolo_batch=TRAIN_BATCH, img_size=IMG, lm_rounds=PLATFORM_LM_ROUNDS,
+                           yolo_rounds=PLATFORM_YOLO_ROUNDS, timer=timer, log=prefixed("phase14a"))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, k9 = pack.packed_bucket_reduce.launches, flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lm, yolo = out["servers"]["lm"], out["servers"]["yolo"]
+    n_lm, n_yolo = lm.aggregator.ctx.spec.n_total, yolo.aggregator.ctx.spec.n_total
+    check(n_yolo == 13_312_864 and lm_cfg.d_model == 2048 and lm_cfg.vocab_size == 151_936,
+          f"phase14a shapes: N {n_lm} and {n_yolo}")
+    check(out["passes"] == PLATFORM_PASSES, f"phase14a {out['passes']} passes")
+    check(all(t.status == TaskStatus.DONE for t in out["tm"].tasks.values()),
+          f"phase14a statuses {[t.status for t in out['tm'].tasks.values()]}")
+    check(len(lm.history) == PLATFORM_LM_ROUNDS and len(yolo.history) == PLATFORM_YOLO_ROUNDS,
+          f"phase14a rounds {len(lm.history)} and {len(yolo.history)}")
+    check(all(np.isfinite(r.loss) for r in lm.history + yolo.history), "phase14a a loss is not finite")
+    rounds_run = PLATFORM_LM_ROUNDS + PLATFORM_YOLO_ROUNDS
+    check(launches == rounds_run, f"phase14a K1 launched {launches} times in {rounds_run} rounds")
+    check(out["secure_err"] <= PLATFORM_SECURE_TOL,
+          f"phase14a secure aggregation gap {out['secure_err']:.3e} > {PLATFORM_SECURE_TOL}")
+    check(peak <= PLATFORM_PEAK_GIB, f"phase14a peak device memory {peak:.2f} GiB")
+    for tid, srv in out["servers"].items():
+        feed = json.loads(monitor.export_json(tid, srv.history, srv.fed.n_clients))
+        check([r["round"] for r in feed["rounds"]] == list(range(len(srv.history)))
+              and feed["n_clients"] == srv.fed.n_clients, f"phase14a export_json {tid}")
+        print(f"phase14a export_json {tid}: {json.dumps(feed)}", flush=True)
+    print(f"phase14a explorer.monitor(): {explorer.monitor()}", flush=True)
+    print(f"phase14a qwen3-1.7b 2 layers (N = {n_lm}; attention_impl {lm_cfg.attention_impl!r}: "
+          f"K9 {k9} launches) eq6 C 3 adamw and fedyolov3 (N = {n_yolo}) dense C 2 sgd at {IMG}: "
+          f"{out['passes']} passes in {secs:.2f} s, drops {out['drops']}; K1 {launches} launches in "
+          f"{rounds_run} rounds; secure gap {out['secure_err']:.3e}; peak device memory "
+          f"{peak:.2f} GiB  [{card}]", flush=True)
+    for tid in ("lm", "yolo"):
+        print(f"phase14a ms per round {tid}: {' '.join(f'{t:.3f}' for t in ms[tid])} (median "
+              f"{statistics.median(ms[tid]):.3f})  [{card}]", flush=True)
+    model = yolo.global_params()
+    lm_spec, yolo_spec = lm.aggregator.ctx.spec, yolo.aggregator.ctx.spec
+    del out, lm, yolo
+    torch.cuda.empty_cache()
+    shapes = [k1_at(yolo_spec, 2, dev, card, "phase14a"), k1_at(lm_spec, 3, dev, card, "phase14a")]
+    return {"launches": launches, "shapes": shapes, "model": model, "version": PLATFORM_YOLO_ROUNDS,
+            "seconds": secs, "peak_gib": peak}
+
+
+def phase14b(dev, card: str) -> int:
+    """One SimClock shared by a sync detector and an async LM under
+    ``TaskManager(clock=).run_to_completion``'s steps. -> K1's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.core.server import FLServer
+    from repro_torch.core.simclock import SimClock
+    from repro_torch.core.task_manager import FederatedTask, TaskManager
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import pack
+    from repro_torch.optim import adamw, sgd
+
+    torch.cuda.empty_cache()
+    lm_cfg, ycfg = platform_lm_cfg(), get_arch("fedyolov3")
+    common = dict(local_steps=1, client_axis="data", data_axis=None, agg_impl="kernel")
+    yfed = FedConfig(n_clients=2, aggregation="dense", **common)
+    lfed = FedConfig(n_clients=3, aggregation="eq6", topn=2, mode="async", buffer_size=2, **common)
+    clock = SimClock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ysrv = FLServer(ycfg, yfed, sgd(1e-3), seed=0, device=dev, clock=clock, task_id="fedyolov3")
+    lsrv = FLServer(lm_cfg, lfed, adamw(3e-3), seed=0, device=dev, clock=clock, task_id="qwen3-1.7b")
+    check(lsrv.engine.clock is clock and ysrv.clock is clock, "phase14b the clock is not shared")
+    ygen = fed_batches(ycfg, yfed, batch=TRAIN_BATCH, seq=0, img_size=IMG)
+    lgen = fed_batches(lm_cfg, lfed, batch=PLATFORM_LM_BATCH, seq=PLATFORM_SEQ)
+    tm = TaskManager(clock=clock)
+    tm.register(FederatedTask("yolo", "fedyolov3", CLOCK_SYNC_ROUNDS,
+                              lambda r: vars(ysrv.run_round(next(ygen))), next_time=ysrv.next_time))
+    tm.register(FederatedTask("lm", "qwen3-1.7b", CLOCK_FLUSHES,
+                              lambda r: vars(lsrv.run_async(next(lgen))), next_time=lsrv.next_time))
+    pack.packed_bucket_reduce.launches = 0
+    steps = []
+    t0 = time.perf_counter()
+    while tm.runnable():  # run_to_completion's loop, one step at a time, checked
+        want = min(tm.runnable(), key=lambda t: (t.next_time(), t.task_id))
+        eta, before, load_t = want.next_time(), clock.now(), ysrv.load_model.t
+        ran, step_ms = timed_flush(tm.step_shared_clock)
+        check(list(ran) == [want.task_id] and "error" not in ran[want.task_id],
+              f"phase14b step ran {ran} where {want.task_id} had the least (next_time, task_id)")
+        check(clock.now() >= before, f"phase14b the clock went back: {before} -> {clock.now()}")
+        if want.task_id == "yolo":  # the round's span moves the clock and its load model
+            span, lspan = clock.now() - before, ysrv.load_model.t - load_t
+            check(span > 0 and abs(span - lspan) <= 1e-9 * clock.now(),
+                  f"phase14b a sync round moved the clock by {span} and its load model by {lspan}")
+        steps.append((want.task_id, round(eta, 3), round(clock.now(), 3), round(step_ms, 3)))
+    secs = time.perf_counter() - t0
+    launches = pack.packed_bucket_reduce.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sim = [r.sim_time for r in lsrv.history]
+    check(len(ysrv.history) == CLOCK_SYNC_ROUNDS and len(lsrv.history) == CLOCK_FLUSHES,
+          f"phase14b {len(ysrv.history)} rounds and {len(lsrv.history)} flushes")
+    check(sim == sorted(sim) and sim[-1] <= clock.now(), f"phase14b flush sim_time {sim}")
+    check(len({s[0] for s in steps}) == 2, f"phase14b steps {steps}")
+    check(launches == CLOCK_SYNC_ROUNDS + CLOCK_FLUSHES,
+          f"phase14b K1 launched {launches} times in {CLOCK_SYNC_ROUNDS + CLOCK_FLUSHES} steps")
+    check(all(np.isfinite(r.loss) for r in ysrv.history + lsrv.history), "phase14b a loss")
+    check(peak <= PLATFORM_PEAK_GIB, f"phase14b peak device memory {peak:.2f} GiB")
+    tm.register(FederatedTask("untimed", "x", 1, lambda r: {}))
+    try:
+        tm.step_shared_clock()
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("next_time" in refused, f"phase14b an untimed task was not refused: {refused!r}")
+    print(f"phase14b one SimClock, sync fedyolov3 (dense C 2, {CLOCK_SYNC_ROUNDS} rounds) and async "
+          f"qwen3-1.7b 2 layers (buffered eq6 C 3, buffer 2, {CLOCK_FLUSHES} flushes): steps "
+          f"(task, its next_time, clock after, ms) {steps}; flush sim_time {[round(t, 3) for t in sim]}; "
+          f"K1 {launches} launches; the untimed task refused; {secs:.2f} s; peak device memory "
+          f"{peak:.2f} GiB  [{card}]", flush=True)
+    del tm, ysrv, lsrv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase14c(dev, card: str, model, version: int) -> int:
+    """14a's trained detector behind ``InferenceService``: 16 requests, none
+    dropped, K3 once a served batch, the serving view. -> K3's launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import monitor, serving
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import detect
+
+    cfg, fed = get_arch("fedyolov3"), FedConfig(n_clients=1)
+    imgs, _ = synthetic.scene_images(np.random.default_rng(11), PLATFORM_REQUESTS, IMG,
+                                     cfg.vocab_size)
+    slot = serving.ModelSlot()
+    slot.publish(version, model)
+    svc = serving.InferenceService(cfg, fed, slot, img_size=IMG, device=dev).start()
+    results, errors = {}, []
+
+    def client_loop(c: int) -> None:
+        try:
+            with serving.InferenceClient(svc.host, svc.port, timeout=300.0) as cl:
+                for i in range(c, PLATFORM_REQUESTS, 2):
+                    results[i] = cl.infer(imgs[i])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    try:
+        detect.nms_keep.launches = 0
+        threads = [threading.Thread(target=client_loop, args=(c,)) for c in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches, batches = detect.nms_keep.launches, svc.stats.batches
+        status = serving.model_status(slot, version, slot.now(), fed, svc.stats)
+    finally:
+        svc.stop()
+    check(not errors, f"phase14c client error: {errors[:1]!r}")
+    check(len(results) == PLATFORM_REQUESTS and status["in_flight"] == 0,
+          f"phase14c {len(results)} of {PLATFORM_REQUESTS} answered, {status['in_flight']} dropped")
+    check(all(r.version == version for r in results.values()), "phase14c a RESULT's version")
+    check(launches == batches >= 1, f"phase14c {launches} NMS launches for {batches} batches")
+    view = monitor.render_serving("fedyolov3", status)
+    check(view.splitlines()[0].startswith(f"[fedyolov3] serving round v{version}"),
+          f"phase14c view {view!r}")
+    prefixed("phase14c")(view)
+    print(f"phase14c {PLATFORM_REQUESTS} requests, 0 dropped, {batches} batches, K3 {launches} "
+          f"launches, {sum(len(r.detections) for r in results.values())} detections, version "
+          f"{version}  [{card}]", flush=True)
+    return launches
+
+
+def phase14d(dev, card: str) -> int:
+    """The quickstart on the card at the reference's defaults, 5 rounds:
+    its loss falls (its own assert), K1 once a round. -> K1's launches."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import pack
+
+    pack.packed_bucket_reduce.launches = 0
+    t0 = time.perf_counter()
+    out = quickstart.main(["--device", str(dev), "--rounds", str(PLATFORM_QUICKSTART_ROUNDS)],
+                          log=prefixed("phase14d"))
+    torch.cuda.synchronize()
+    launches = pack.packed_bucket_reduce.launches
+    check(launches == PLATFORM_QUICKSTART_ROUNDS,
+          f"phase14d K1 launched {launches} times in {PLATFORM_QUICKSTART_ROUNDS} rounds")
+    print(f"phase14d quickstart --rounds {PLATFORM_QUICKSTART_ROUNDS}: loss "
+          f"{' '.join(f'{x:.4f}' for x in out['losses'])}, mean participants "
+          f"{out['mean_participants']:.1f}/4; K1 {launches} launches; "
+          f"{time.perf_counter() - t0:.2f} s  [{card}]", flush=True)
+    return launches
+
+
+def phase14(dev, card: str) -> dict:
+    """Phase 14's four parts -> K1's and K3's launches and K1's shapes."""
+    a = phase14a(dev, card)
+    b = phase14b(dev, card)
+    k3 = phase14c(dev, card, a.pop("model"), a["version"])
+    d = phase14d(dev, card)
+    return {"k1": {"platform": a["launches"], "shared_clock": b, "quickstart": d},
+            "k1_shapes": a["shapes"], "k3": k3}
 
 
 def main() -> None:
@@ -3027,6 +3319,10 @@ def main() -> None:
     wire_launches["kill_restore"] = phase13b(dev, card)
     phase13c(dev, card)
 
+    # ---- phase 14: the multi-task platform ---------------------------------
+    mark("phase 14")
+    platform = phase14(dev, card)
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -3047,7 +3343,9 @@ def main() -> None:
     kernels = [
         entry("nms_keep", "nms.cu", "detect.py:173", launches, k_stats["nms_keep"],
               launches_training=train_launches["nms_keep"], launch_floor_ms=floor_ms,
-              launch_floor_ms_from=floor_from),
+              launch_floor_ms_from=floor_from,
+              launches_platform={"serving_view": platform["k3"], "main_path": f"phase 14c: "
+                                 f"{PLATFORM_REQUESTS} requests to the platform's trained detector"}),
         entry("packed_bucket_reduce", "bucket_reduce.cu", "pack.py:132",
               train_launches["packed_bucket_reduce"], k_stats["packed_bucket_reduce"],
               launches_lm_training=lm_train["packed_bucket_reduce"],
@@ -3061,7 +3359,13 @@ def main() -> None:
                              f"dense across a kill and restore (plus the flushes its recovery "
                              f"replays)"},
               wire_max_abs_err=wire13["max_abs_err"], wire_device_ms=wire13["device_ms"],
-              wire_device_ms_from=wire13["device_ms_from"], wire_bound_ms=wire13["bound_ms"]),
+              wire_device_ms_from=wire13["device_ms_from"], wire_bound_ms=wire13["bound_ms"],
+              launches_platform={**platform["k1"], "main_path": f"phase 14: the platform's "
+                                 f"{PLATFORM_LM_ROUNDS} eq6 and {PLATFORM_YOLO_ROUNDS} dense rounds, "
+                                 f"the shared clock's {CLOCK_SYNC_ROUNDS} rounds and "
+                                 f"{CLOCK_FLUSHES} flushes, the quickstart's "
+                                 f"{PLATFORM_QUICKSTART_ROUNDS} rounds"},
+              platform_shapes=platform["k1_shapes"]),
         entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
               k_stats["pairwise_iou"], launch_floor_ms=floor_ms, launch_floor_ms_from=floor_from),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],

@@ -1,19 +1,63 @@
-"""Explorer's straggler load model (port of ``repro/core/explorer.py``:
-``LoadModelConfig``, ``ClientLoadModel``).
+"""Explorer — client-side resource monitor (port of
+``repro/core/explorer.py``; paper component #4).
 
-The Explorer monitors the clients' resource use to inform the Task
-Scheduler. In the simulated platform every client shares one host, so
-:class:`ClientLoadModel` stands in for the per-client reports: a persistent
-heterogeneous load process whose per-round values feed the scheduler. A
-NumPy copy: the same seed gives the same loads. The /proc monitor and the
-i.i.d. ``simulated_loads`` belong to later slices.
+"monitors the resource utilization situation on the client side (e.g., CPU
+usage, memory usage, network load) so as to inform the Task Scheduler."
+
+/proc-based (no external deps). In the simulated platform every client
+shares one host, so :func:`monitor` returns the host telemetry,
+:func:`simulated_loads` draws i.i.d. per-client loads for quick
+experiments, and :class:`ClientLoadModel` is the persistent heterogeneous
+straggler model whose per-round reports feed the Task Scheduler. A NumPy
+copy: the same seed gives the same loads.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class ResourceReport:
+    cpu_frac: float
+    mem_frac: float
+    load1: float
+    timestamp: float
+
+
+def _read_cpu_times() -> tuple[float, float]:
+    with open("/proc/stat") as f:
+        parts = f.readline().split()[1:]
+    vals = [float(x) for x in parts]
+    idle = vals[3] + (vals[4] if len(vals) > 4 else 0.0)
+    return sum(vals), idle
+
+
+def monitor(sample_interval: float = 0.05) -> ResourceReport:
+    t0, i0 = _read_cpu_times()
+    time.sleep(sample_interval)
+    t1, i1 = _read_cpu_times()
+    dt, di = t1 - t0, i1 - i0
+    cpu = 1.0 - di / dt if dt > 0 else 0.0
+    total = avail = 1.0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                total = float(line.split()[1])
+            elif line.startswith("MemAvailable:"):
+                avail = float(line.split()[1])
+    with open("/proc/loadavg") as f:
+        load1 = float(f.read().split()[0])
+    return ResourceReport(cpu, 1.0 - avail / total, load1, time.time())
+
+
+def simulated_loads(n_clients: int, rng: np.random.Generator, base: ResourceReport | None = None) -> np.ndarray:
+    """Per-client load in [0,1]: host load plus client-specific jitter."""
+    host = base.cpu_frac if base else 0.2
+    return np.clip(host + rng.uniform(-0.1, 0.6, n_clients), 0.0, 1.0)
 
 
 @dataclasses.dataclass

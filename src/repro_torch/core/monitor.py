@@ -1,16 +1,20 @@
-"""Round-monitoring view (port of ``repro/core/monitor.py``: ``sparkline``,
-``top_clients``, ``render_task``, ``render_wire``; paper Fig. 9,
+"""Round-monitoring view (port of ``repro/core/monitor.py``; paper Fig. 9,
 "Monitoring multiple rounds of federated model training on FedVision").
 
 Renders per-task progress — round, loss sparkline, participation, mAP —
-as the text analogue of the platform's dashboard. Per-client detail is
-capped at a top-k (``top_clients``). An async history (``AsyncRoundRecord``)
-adds the simulated clock, the staleness trajectory and the dropped count.
-The wire view adds the socket transport's counters. The serving and JSON
-views belong to slice 6.
+as the text analogue of the platform's dashboard, and exports the same
+data as JSON for a real UI (``export_json``). Per-client detail is capped
+at a top-k (``top_clients``): a C=1024 federation renders and exports O(k)
+client rows; pass ``per_client_cap=0`` to ``export_json`` for the full
+per-client vectors. An async history (``AsyncRoundRecord``) adds the
+simulated clock, the staleness trajectory and the dropped count. The wire
+view adds the socket transport's counters, the serving view the served
+model's freshness and traffic (``serving.model_status``). Every line and
+key is the reference's.
 """
 from __future__ import annotations
 
+import json
 from typing import Sequence
 
 _SPARK = "▁▂▃▄▅▆▇█"
@@ -122,3 +126,68 @@ def render_wire(task_id: str, history, stats, n_clients: int, liveness_log=()) -
             + ("   CRASHED" if stats.crashed else "")
         )
     return "\n".join(lines)
+
+
+def render_serving(task_id: str, status: dict) -> str:
+    """The serving-plane lines (DESIGN.md §17). ``status`` is a
+    `serving.model_status` dict — the SAME evaluation the service answers
+    STATUS frames with (one evaluator, two callers), so this view can
+    never disagree with what the wire reports."""
+    tier = status["tier"]
+    flag = {"fresh": "", "soft_stale": "   WARN stale", "hard_stale": "   DEGRADED"}[tier]
+    lines = [
+        f"[{task_id}] serving round v{status['version']}"
+        f" (latest landed v{status['latest_version']})   {tier}{flag}",
+        f"  behind   {status['rounds_behind']} rounds"
+        f"   {status['seconds_behind']:.1f}s"
+        f"   swaps {status['swaps']}",
+    ]
+    if "requests" in status:
+        lines.append(
+            f"  traffic  {status['requests']} requests   {status['results']} results"
+            f"   {status['batches']} batches"
+            f"   occupancy {status['avg_occupancy']:.2f}"
+            f"   in flight {status['in_flight']}"
+        )
+    return "\n".join(lines)
+
+
+def export_json(task_id: str, history, n_clients: int, eval_history=None, per_client_cap: int = 16) -> str:
+    """JSON dashboard feed. Eval rows carry the full per-client mAP vector
+    only while ``n_clients <= per_client_cap``; above it each row exports
+    the top-``per_client_cap`` clients as a ``per_client_top`` map plus the
+    pooled spread, so the payload is O(k) per round at C=1024. Pass
+    ``per_client_cap=0`` (or None) to always export the full vectors."""
+
+    def row(r):
+        d = {"round": r.round_idx, "loss": r.loss, "participants": sum(1 for w in r.weights if w > 0), "seconds": r.seconds}
+        if getattr(r, "sim_time", None) is not None and hasattr(r, "staleness"):
+            d.update(sim_time=r.sim_time, staleness=list(r.staleness), dropped=r.dropped)
+        return d
+
+    out = {
+        "task": task_id,
+        "rounds": [row(r) for r in history],
+        "n_clients": n_clients,
+    }
+    if eval_history:
+        cap = per_client_cap or 0
+        if cap and n_clients > cap:
+            top = top_clients(history, n_clients, eval_history, k=cap)
+
+            def erow(e):
+                per = e.per_client_map
+                return {
+                    "round": e.round_idx,
+                    "map50": e.map50,
+                    "per_client_top": {str(c): per[c] for c in top if c < len(per)},
+                    "per_client_capped": n_clients,
+                }
+
+            out["eval"] = [erow(e) for e in eval_history]
+        else:
+            out["eval"] = [
+                {"round": e.round_idx, "map50": e.map50, "per_client_map": e.per_client_map}
+                for e in eval_history
+            ]
+    return json.dumps(out)

@@ -25,8 +25,14 @@ control plane for ``core.async_engine``: the buffered engine, or the
 streaming one under ``FedConfig.stream``. :meth:`FLServer.run_async` drives
 one flush a call on the engine's simulated clock and records per-update
 staleness and the simulated time in the history the monitor renders; the
-engine feeds the scheduler's quality EMA from its completions. A simulated
-clock shared between servers (the Task Manager's) is slice 6.
+engine feeds the scheduler's quality EMA from its completions.
+
+Shared clock (DESIGN.md §12): a server built with ``clock=`` (one
+``SimClock`` handed to several servers and to the Task Manager) advances it
+by every sync round's wait-for-slowest duration, and an async server hands
+it to its engine, so sync rounds and async flushes interleave under
+``TaskManager.step_shared_clock``. Without one, sync rounds keep the
+timeless cadence (one load-model tick a round, the clock at 0).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from repro_torch.checkpoint import ObjectStore
 from repro_torch.core import aggregators, explorer, packing, rounds
 from repro_torch.core.async_engine import (AsyncRoundRecord, BufferedAsyncEngine,
                                            StreamingAsyncEngine, TimingModel,
-                                           default_upload_terms)
+                                           default_upload_terms, sync_round_seconds)
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
 from repro_torch.core.simclock import SimClock
 from repro_torch.models.yolov3 import FedYOLOv3
@@ -83,15 +89,13 @@ class FLServer:
         checkpoint_every: int = 0,
         task_id: str = "task",
         load_model: explorer.ClientLoadModel | None = None,
-        clock=None,
+        clock: SimClock | None = None,
         timing: TimingModel | None = None,
         device: str | torch.device = "cuda",
         mesh=None,
     ):
         if fed.mode not in ("sync", "async"):
             raise ValueError(f"unknown mode {fed.mode!r}; expected sync|async")
-        if clock is not None:
-            raise NotImplementedError("a shared simulated clock (TaskManager) is ported in slice 6")
         self.device = D.resolve(device)
         self.cfg = cfg
         self.fed = fed
@@ -102,7 +106,12 @@ class FLServer:
         self.scheduler = scheduler or TaskScheduler(fed.n_clients, SchedulerConfig())
         self.load_model = load_model or explorer.ClientLoadModel(fed.n_clients, seed=seed)
         self.mesh = mesh
-        self.clock = SimClock()  # this server's own (a shared one is slice 6)
+        # an explicitly shared clock makes sync rounds advance simulated
+        # time too (wait-for-slowest), so sync and async servers interleave
+        # under TaskManager.step_shared_clock; without one, sync rounds
+        # keep the legacy timeless cadence
+        self._shared_clock = clock is not None
+        self.clock = clock or SimClock()
         self.timing = timing or TimingModel()
         # compact rounds need the scheduler to emit exactly K indices
         self._k_static = rounds.static_budget(fed) if fed.participation == "compact" else None
@@ -176,9 +185,21 @@ class FLServer:
                 "FedConfig(mode='async') servers run buffered flushes — call "
                 "run_async(batch) (or fit(), which dispatches on the mode)")
         t0 = time.time()
-        loads = self.load_model.step()  # one tick per round
+        if self._shared_clock:
+            # this round's report is the load process state *now*; the round
+            # then consumes wait-for-slowest simulated time and the process
+            # evolves over that same span
+            loads = self.load_model.loads.copy()
+        else:
+            loads = self.load_model.step()  # legacy: one tick per round
         sel = self.scheduler.participation(loads, k_static=self._k_static)
         part = rounds.participation_input(self.fed, sel["mask"], sel["weights"], sel.get("idx"))
+        if self._shared_clock:
+            # the round takes as long as its slowest selected client
+            dur = sync_round_seconds(self.timing, loads, self._upload_s, self.fed.local_steps,
+                                     mask=sel["mask"])
+            self.clock.advance(dur)
+            self.load_model.step(dur)
         batch = rounds.to_device(batch, self.device)
         if not self.aggregator.stacked:
             batch = rounds.merge_clients(batch)

@@ -1,6 +1,6 @@
 """Host-side batching (port of ``repro/data/pipeline.py``): the detection
-suite, the partitioned token pool and ``fed_batches``' text and
-partitioned-yolo branches.
+suite, the partitioned token pool and ``fed_batches``' text and yolo
+branches.
 
 NumPy only: the same seed gives bit-identical batches to the reference's.
 The batches stay NumPy; the caller moves them to its device
@@ -51,6 +51,18 @@ def partitioned_token_batches(
         yield {"tokens": seqs[idx].astype(np.int32)}  # (C, E, b, S)
 
 
+def _stack_targets(acc: list[list[list[dict]]]) -> list[dict]:
+    """Per-(client, step) grid targets -> per-scale dicts of (C, E, b, ...)."""
+    C, E = len(acc), len(acc[0])
+    return [
+        {
+            k: np.stack([np.stack([acc[c][e][s][k] for e in range(E)]) for c in range(C)])
+            for k in ("obj", "box", "cls")
+        }
+        for s in range(len(acc[0][0]))
+    ]
+
+
 def _scene_targets(pool: dict, idx: np.ndarray, grids: list[int], cfg: ArchConfig):
     """Sampled scene indices (C, E, b) -> (images, per-scale grid targets)."""
     C, E, b = idx.shape
@@ -60,14 +72,7 @@ def _scene_targets(pool: dict, idx: np.ndarray, grids: list[int], cfg: ArchConfi
                                cfg.vocab_size, ANCHORS) for e in range(E)]
         for c in range(C)
     ]
-    targets = [
-        {
-            k: np.stack([np.stack([acc[c][e][s][k] for e in range(E)]) for c in range(C)])
-            for k in ("obj", "box", "cls")
-        }
-        for s in range(len(grids))
-    ]
-    return ims, targets
+    return ims, _stack_targets(acc)
 
 
 def detection_suite(
@@ -141,7 +146,9 @@ def fed_batches(cfg: ArchConfig, fed: FedConfig, batch: int, seq: int, seed: int
 
     Text archs: per-client Markov drift (``"stream"``) or a ``data.partition``
     scenario over a labeled pool (:func:`partitioned_token_batches`); yolo
-    archs under a scenario: :func:`detection_suite`'s training batches.
+    archs: fresh scenes every local step (``"stream"``: images (C, E, b, H,
+    W, 3) and three target heads of (C, E, b, ...)) or, under a scenario,
+    :func:`detection_suite`'s training batches.
     """
     C, E = fed.n_clients, fed.local_steps
     if cfg.modality in ("audio", "vlm"):
@@ -155,6 +162,17 @@ def fed_batches(cfg: ArchConfig, fed: FedConfig, batch: int, seq: int, seed: int
                                              seed, alpha=alpha)
         return
     if cfg.family == "yolo":
-        raise NotImplementedError("fed_batches' per-step detection scenes are not ported; "
-                                  "detection trains on detection_suite's batches")
+        # per-step detection scenes: every (client, step) draws a fresh batch
+        rng = np.random.default_rng(seed)
+        grids = grid_sizes(cfg, img_size)
+        while True:
+            ims = np.empty((C, E, batch, img_size, img_size, 3), np.float32)
+            acc = [[None] * E for _ in range(C)]
+            for c in range(C):
+                for e in range(E):
+                    im, boxes = synthetic.scene_images(rng, batch, img_size, cfg.vocab_size)
+                    ims[c, e] = im
+                    acc[c][e] = darknet.build_targets(boxes, grids, cfg.n_heads, cfg.vocab_size,
+                                                      ANCHORS)
+            yield {"images": ims, "targets": _stack_targets(acc)}
     yield from synthetic.token_batches(cfg.vocab_size, C, E, batch, seq, seed)

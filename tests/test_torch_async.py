@@ -323,8 +323,12 @@ def test_server_runs_async_and_reads_the_engine_global():
     want = rounds.global_model(TCFG, srv.state["params"][srv.engine.global_row], "cpu")
     for k, v in srv.global_params().state_dict().items():
         assert torch.equal(v, want.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        FLServer(TCFG, fed, sgd(), device="cpu", clock=SimClock())
+    # a shared clock (the Task Manager's) is handed to the engine
+    clock = SimClock()
+    shared = FLServer(TCFG, fed, sgd(), device="cpu", clock=clock)
+    assert shared.clock is clock and shared.engine.clock is clock
+    shared.run_async(next(_batches()))
+    assert clock.now() > 0 and shared.history[-1].sim_time == clock.now()
 
 
 def test_publish_from_engine_serves_the_landed_global_and_keeps_it():

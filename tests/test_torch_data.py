@@ -130,6 +130,27 @@ def test_detection_suite_bit_identical():
                 np.testing.assert_array_equal(t[k], jt[k])
 
 
+def test_fed_batches_stream_detection_scenes_bit_identical():
+    """``fed_batches``' default ``"stream"`` partition for a yolo arch: fresh
+    scenes every (client, local step), the three target heads stacked to
+    (C, E, b, ...)."""
+    tcfg, jcfg = get_arch("fedyolov3").reduced(), jget_arch("fedyolov3").reduced()
+    tfed, jfed = FedConfig(n_clients=2, local_steps=2), JFedConfig(n_clients=2, local_steps=2)
+    gen = pipeline.fed_batches(tcfg, tfed, batch=2, seq=0, img_size=32)
+    jgen = jpipeline.fed_batches(jcfg, jfed, batch=2, seq=0, img_size=32)
+    grids = yolov3.grid_sizes(tcfg, 32)
+    for _ in range(3):
+        b, jb = next(gen), next(jgen)
+        assert b["images"].shape == (2, 2, 2, 32, 32, 3) and b["images"].dtype == np.float32
+        np.testing.assert_array_equal(b["images"], jb["images"])
+        assert len(b["targets"]) == len(jb["targets"]) == 3
+        for g, t, jt in zip(grids, b["targets"], jb["targets"]):
+            assert t["obj"].shape[:5] == (2, 2, 2, g, g)
+            for k in ("obj", "box", "cls"):
+                assert t[k].dtype == jt[k].dtype
+                np.testing.assert_array_equal(t[k], jt[k], err_msg=k)
+
+
 def test_scheduler_and_load_model_same_selections():
     cfg = dict(max_participants=2, fairness_rounds=2)
     ours = scheduler.TaskScheduler(5, scheduler.SchedulerConfig(**cfg))

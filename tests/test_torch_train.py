@@ -356,13 +356,17 @@ def test_unported_configurations_raise():
     # idx rides only under compact participation
     assert "idx" not in rounds.participation_input(_fed("torch"), np.ones(C), np.ones(C) / C,
                                                    idx=np.arange(C))
-    # async mode is ported (tests/test_torch_async.py); a shared clock is not
+    # async mode is ported (tests/test_torch_async.py), and so is a shared
+    # clock (tests/test_torch_platform.py): a sync round advances it
     assert FLServer(TCFG, _fed("torch", mode="async", buffer_size=2), sgd(),
                     device="cpu").engine is not None
     from repro_torch.core.simclock import SimClock
 
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        FLServer(TCFG, _fed("torch"), sgd(), device="cpu", clock=SimClock())
+    clock = SimClock()
+    srv = FLServer(TCFG, _fed("torch", local_steps=1), sgd(), device="cpu", clock=clock)
+    assert srv.clock is clock
+    srv.run_round(next(pipeline.fed_batches(TCFG, srv.fed, batch=1, seq=0, img_size=IMG)))
+    assert clock.now() > 0 and srv.load_model.t == clock.now()
 
 
 # ------------------------------ state and rounds ----------------------------
