@@ -103,7 +103,11 @@ recorded every launch made; where no trace does, the kernels line says
    chunk 128), the reference test's shapes (chunks 8, 16, 32), the main
    shape with bfloat16 inputs, 12 heads, chunk 64, 17 heads (a ragged last
    head group), P = 128 (two 64-column head blocks) and a bfloat16 case
-   with P = 100 and N = 36. First the count of tensor-core instructions
+   with P = 100 and N = 36; then phase 15's prefill shapes: K9 at zamba2's
+   (4, 32, 1024, 80) over 32 kv heads, gemma3's (4, 32, 1536, 128) over 16
+   with a window of 1024, llava's (2, 64, 3968, 128) over 8, grok's (4, 48,
+   1024, 128) and minitron's (4, 32, 1024, 128) over 8; K10 at zamba2's
+   (B 4, S 1024, H 80, P 64, N 64, chunk 128). First the count of tensor-core instructions
    (HMMA/HGMMA) in each K9/K10 kernel's SASS, by ``cuobjdump`` (else the
    ``mma`` instructions of the sources); a kernel with none fails.
    Kernel ms (CUDA events), device ms (profiler), plain ms, two bounds (the
@@ -200,7 +204,7 @@ recorded every launch made; where no trace does, the kernels line says
    published widths with its depth cut to 2 layers (N = 411,838,976: a
    DISPATCH frame carries the dense f32 row and a frame is capped at
    2^31 bytes), 4 clients in 2 worker processes on the card, a flush every
-   2 landings, batch 1 x 128. (a) The quant8 socket run, 3 flushes: no
+   2 landings, batch 1 x 128. (a) The quant8 socket run, 2 flushes: no
    deadline hit, K1 once a flush in the server, the recorded schedule
    replayed on the card to the run's global within 1e-5; prints the dispatch frame's bytes against
    MAX_FRAME, landings, drops, bytes up and down, seconds, the landing
@@ -208,8 +212,8 @@ recorded every launch made; where no trace does, the kernels line says
    flush's land) and per dispatch, the server's peak device memory; then
    K1 at a flush's shape (4, N) with the run's bucket ids, bitwise against
    its plain version, its device ms beside its bound. (b) The dense socket
-   run with a snapshot every 4 landings, killed after 5 (``kill@5``),
-   restored on the same port, 3 flushes: recovered, crashed, one
+   run with a snapshot every 2 landings, killed after 3 (``kill@3``),
+   restored on the same port, 2 flushes: recovered, crashed, one
    recovery, K1 once a flush and once a flush its recovery replays, the
    WAL's schedule replayed to the recovered run's global bitwise; prints
    the run's readings as (a) does, the snapshot's bytes and seconds and
@@ -241,6 +245,25 @@ recorded every launch made; where no trace does, the kernels line says
    none dropped, K3 once a served batch, ``monitor.render_serving``. (d)
    The quickstart at the reference's defaults with ``--rounds 5``: its
    loss falls, K1 once a round.
+15. The other LM families served at full width through the launcher
+   (``repro_torch.launch.serve``, ``models/{serving,moe}.py``), random f32
+   weights from seed 0 drawn on the card, float32 caches, 16 new tokens:
+   granite-moe-1b-a400m (GShard, 32 experts top 8, groups of 512) and
+   minitron-8b (untied 256k head) whole, batch 4 x 1024; grok-1-314b cut to
+   2 layers, 4 x 1024; gemma3-27b cut to 14 layers (2 period groups and a
+   2-layer tail), 4 x 1536 (512 past its 1024-token window); zamba2-2.7b
+   whole (54 Mamba2 layers, 6 applications of the shared block), 4 x
+   1024; llava-next-34b cut to 6 layers, 2 x 1088 behind 2880 image
+   tokens (64 q heads, 8 of them dead padding). Checks: K9 launched 24, 2,
+   14, 6, 6 and 32 times and K10 54 times (zamba2) in the launcher's run,
+   one prefill's worth, and 0 times in decode; the kernel path's prefill
+   logits equal the plain path's at 5e-4 and the first decode step's at
+   5e-3; the kernel path's greedy decode, teacher-forced against a full
+   forward over the sequence it generated, within 5e-3 (the check a ring
+   cache in the wrong slot order fails) and the same token wherever the
+   top-2 margin exceeds twice the gap (MoE: the tokens only, since GShard's
+   capacity depends on the routing group); peak device memory at most 75
+   GiB. Prints prefill ms, decode ms per token and tokens/s.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -338,7 +361,15 @@ FLASH_CASES = [((4, 16, 8, 1024, 128), True, 0, torch.float32),
                ((1, 4, 2, 192, 64), True, 0, torch.bfloat16),
                ((1, 4, 2, 384, 128), True, 100, torch.float32),
                ((1, 4, 1, 384, 64), True, 130, torch.float32),
-               ((1, 2, 1, 256, 64), False, 96, torch.float32)]
+               ((1, 2, 1, 256, 64), False, 96, torch.float32),
+               # phase 15's prefills: zamba2's shared block at hd 80, gemma3's
+               # 1024 window past S = 1024, llava's 64 q heads (8 dead) over 8,
+               # grok's 48 heads, minitron's 32
+               ((4, 32, 32, 1024, 80), True, 0, torch.float32),
+               ((4, 32, 16, 1536, 128), True, 1024, torch.float32),
+               ((2, 64, 8, 3968, 128), True, 0, torch.float32),
+               ((4, 48, 8, 1024, 128), True, 0, torch.float32),
+               ((4, 32, 8, 1024, 128), True, 0, torch.float32)]
 SSD_CASES = [(4, 1024, 64, 64, 128, 128, torch.float32), (1, 32, 2, 8, 4, 8, torch.float32),
              (2, 64, 3, 16, 8, 16, torch.float32), (1, 128, 1, 64, 16, 32, torch.float32),
              (4, 1024, 64, 64, 128, 128, torch.bfloat16),
@@ -346,7 +377,8 @@ SSD_CASES = [(4, 1024, 64, 64, 128, 128, torch.float32), (1, 32, 2, 8, 4, 8, tor
              (2, 1024, 8, 64, 128, 64, torch.float32),  # chunk 64
              (1, 1024, 17, 64, 128, 128, torch.float32),  # groups of 2 heads, the last of 1
              (1, 256, 4, 128, 128, 128, torch.float32),  # two 64-column head blocks
-             (1, 256, 3, 100, 36, 64, torch.bfloat16)]
+             (1, 256, 3, 100, 36, 64, torch.bfloat16),
+             (4, 1024, 80, 64, 64, 128, torch.float32)]  # zamba2's prefill (phase 15)
 KERNEL_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # phase 9: the LM serve path at full width, and the kernel each arch runs
 LM_ARCHS = [("qwen3-1.7b", "flash_attention"), ("mamba2-1.3b", "ssd_chunk_scan")]
@@ -402,14 +434,16 @@ REPLAY_QUANT_TOL = 1e-5
 # worker processes, a flush every 2 landings, batch 1 x 128
 WIRE_META = dict(arch="qwen3-1.7b", reduced=False, overrides={"n_layers": 2}, n_clients=4,
                  buffer_size=2, max_staleness=2, batch=1, seq=128)
-WIRE_FLUSHES = 3
+# 2 flushes a run: a socket run's seconds are its host copies, and phase
+# 15 shares the script's 1200 s
+WIRE_FLUSHES = 2
 # 13a runs quant8 alone, replayed within 1e-5: with a dense run too (about
 # 185 s with its replay) the script took 1111 s of its 1200 on the H100;
 # 13b's dense run is replayed bitwise
 WIRE_13A = (("quant8", REPLAY_QUANT_TOL),)
-# 13b: one snapshot (after landing 4), the kill after landing 5; the
-# recovery replays landing 5 and landing 6 makes the third flush
-WIRE_SNAPSHOT_EVERY, WIRE_KILL = 4, "kill@5"
+# 13b: one snapshot (after landing 2), the kill after landing 3; the
+# recovery replays landing 3 and landing 4 makes the second flush
+WIRE_SNAPSHOT_EVERY, WIRE_KILL = 2, "kill@3"
 # a worker waits for its next dispatch while the others' gigabyte frames
 # move; the recovery reads a 6.6 GB snapshot before it rebinds
 WIRE_GROUPS = [{"client_ids": [0, 1], "extra": ["--dispatch-timeout", "300"]},
@@ -433,6 +467,19 @@ PLATFORM_LM_ROUNDS, PLATFORM_YOLO_ROUNDS, PLATFORM_PASSES = 8, 6, 8
 PLATFORM_SECURE_TOL, PLATFORM_PEAK_GIB = 1e-3, 45.0
 CLOCK_SYNC_ROUNDS, CLOCK_FLUSHES = 3, 3
 PLATFORM_REQUESTS, PLATFORM_QUICKSTART_ROUNDS = 16, 5
+# 15: slice 7c, the other LM families served through the launcher at their
+# published widths, f32 weights from seed 0 drawn on the card, and float32
+# caches (``dtype="float32"``) so that decode is held to a full forward at
+# the decode tolerance. (arch, layers kept (0: all), batch, prompt, K9 and
+# K10 launches a prefill). Depth is cut where f32 weights pass 80 GB
+# (gemma3 62 layers 100.6 GiB, llava 60 129.9, grok 64 1176): gemma3 to 2
+# period groups and a 2-layer tail, so its tail and both window kinds stay;
+# llava's prompt makes 2880 image tokens + 1088 a multiple of 128 (K9's
+# branch); gemma3's 1536 puts the prompt 512 past its 1024-token window
+FAMILY_ROWS = [("granite-moe-1b-a400m", 0, 4, 1024, 24, 0), ("grok-1-314b", 2, 4, 1024, 2, 0),
+               ("gemma3-27b", 14, 4, 1536, 14, 0), ("zamba2-2.7b", 0, 4, 1024, 6, 54),
+               ("llava-next-34b", 6, 2, 1088, 6, 0), ("minitron-8b", 0, 4, 1024, 32, 0)]
+FAMILY_NEW, FAMILY_PEAK_GIB = 16, 75.0
 
 
 def fail(msg: str) -> None:
@@ -3100,6 +3147,141 @@ def phase14(dev, card: str) -> dict:
             "k1_shapes": a["shapes"], "k3": k3}
 
 
+def family_cfg(arch: str, layers: int):
+    """The registry's config at float32, its depth cut to ``layers`` (0: all)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def phase15(dev, card: str) -> dict:
+    """Slice 7c at full width through the launcher: each of ``FAMILY_ROWS``
+    served by ``serve_lm`` (K9/K10 counted exactly), then the kernel path's
+    prefill against the plain path's, the first decode step on each path's
+    cache, the kernel path's greedy decode teacher-forced against a full
+    forward over the sequence it generated, the prefill's and a decode
+    step's time and the peak memory. -> {kernel: {arch: launches}}."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import serve
+    from repro_torch.models import serving as MS
+    from repro_torch.models.params import flatten_with_paths
+    from repro_torch.models.transformer import logits_fn
+
+    counters = (kflash.flash_attention, kssd.ssd_chunk_scan)
+    out = {"flash_attention": {}, "ssd_chunk_scan": {}}
+    for arch, layers, B, P, k9, k10 in FAMILY_ROWS:
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, layers)
+        kcfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+        rcfg = dataclasses.replace(cfg, attention_impl="ref", ssm_impl="ref")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = serve.lm_params(kcfg, dev)
+        n_params = sum(w.numel() for _, w in flatten_with_paths(params))
+        args = serve.build_parser().parse_args(
+            ["--arch", arch, "--full-size", "--batch", str(B), "--prompt-len", str(P),
+             "--new-tokens", str(FAMILY_NEW), "--device", str(dev)])
+        # -- the launcher's path, counts read just around it
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        summary = serve.serve_lm(cfg, args, dev, params=params)
+        torch.cuda.synchronize()
+        launches = tuple(fn.launches for fn in counters)
+        check(launches == (k9, k10), f"phase15 {arch}: K9/K10 launches {launches} in one prefill "
+                                     f"and {FAMILY_NEW} decode steps, want {(k9, k10)}")
+        check(len(summary["generated"]) == FAMILY_NEW, f"phase15 {arch}: {summary['generated']}")
+
+        prompts, images = serve.lm_inputs(cfg, B, P, dev)
+        batch = {"tokens": prompts} if images is None else {"tokens": prompts, "images": images}
+        ni = 0 if images is None else images.shape[1]
+        S = ni + P
+        max_len = S + FAMILY_NEW
+        with torch.inference_mode():
+            # -- kernel path against the plain path on the same card and weights
+            before = tuple(fn.launches for fn in counters)
+            kl, kc = MS.prefill(kcfg, params, batch, max_len=max_len)
+            check(tuple(fn.launches - b for fn, b in zip(counters, before)) == (k9, k10),
+                  f"phase15 {arch}: the kernel path's prefill launched K9/K10 "
+                  f"{tuple(fn.launches - b for fn, b in zip(counters, before))} times")
+            rl, rc = MS.prefill(rcfg, params, batch, max_len=max_len)
+            check(bool(torch.isfinite(kl).all() and torch.isfinite(rl).all()),
+                  f"phase15 {arch}: non-finite prefill logits")
+            pre_gap = float((kl - rl).abs().max())
+            check(torch.allclose(kl, rl, rtol=PREFILL_TOL, atol=PREFILL_TOL),
+                  f"phase15 {arch}: kernel prefill logits != plain at {PREFILL_TOL} (gap {pre_gap:.3e})")
+            tok = kl[:, -1].argmax(-1, keepdim=True)
+            kd, kc = MS.decode_step(kcfg, params, kc, tok, S)
+            rd, rc = MS.decode_step(rcfg, params, rc, tok, S)
+            dec_gap = float((kd - rd).abs().max())
+            check(torch.allclose(kd, rd, rtol=DECODE_TOL, atol=DECODE_TOL),
+                  f"phase15 {arch}: first decode logits != plain at {DECODE_TOL} (gap {dec_gap:.3e})")
+            del rc, rl, rd
+            # -- the kernel path's greedy decode, timed, then held to a full
+            # forward over the sequence it generated (teacher forcing)
+            steps, toks = [kl[:, -1], kd[:, -1]], [tok]
+            tok = kd[:, -1].argmax(-1, keepdim=True)
+            before = tuple(fn.launches for fn in counters)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(1, FAMILY_NEW):
+                toks.append(tok)
+                kd, kc = MS.decode_step(kcfg, params, kc, tok, S + i)
+                steps.append(kd[:, -1])
+                tok = kd[:, -1].argmax(-1, keepdim=True)
+            end.record()
+            end.synchronize()
+            decode_ms = start.elapsed_time(end) / (FAMILY_NEW - 1)
+            check(tuple(fn.launches for fn in counters) == before, f"phase15 {arch}: decode launched K9/K10")
+            del kc
+            full_batch = dict(batch, tokens=torch.cat([prompts, *toks], dim=1))
+            hidden, _ = MS.prefill_hidden(kcfg, params, full_batch)
+            full = logits_fn(kcfg, params, hidden[:, S - 1:])
+            del hidden
+            step_l = torch.stack(steps, dim=1)  # (B, NEW + 1, V)
+            tf_gap = float((step_l - full).abs().max())
+            top2 = full.float().topk(2, dim=-1).values
+            firm = (top2[..., 0] - top2[..., 1]) > 2 * (step_l - full).abs().amax(-1)
+            same = step_l.argmax(-1) == full.argmax(-1)
+            check(bool(same[firm].all()), f"phase15 {arch}: a teacher-forced token with a clear "
+                                          f"margin differs from the full forward's")
+            # GShard capacity depends on the routing group: a full forward
+            # over S + n tokens routes differently from prefill + steps, so
+            # under MoE only the tokens are held
+            if cfg.family != "moe":
+                check(tf_gap <= DECODE_TOL, f"phase15 {arch}: decode against the full forward "
+                                            f"{tf_gap:.3e} > {DECODE_TOL}")
+            del step_l, full, steps
+            prefill_ms = time_ms(lambda: MS.prefill(kcfg, params, batch, max_len=max_len), reps=2,
+                                 warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(peak <= FAMILY_PEAK_GIB, f"phase15 {arch}: peak {peak:.2f} GiB > {FAMILY_PEAK_GIB}")
+        shape = f"{B} x {P}" + (f" + {ni} image tokens" if ni else "")
+        print(f"phase15 {arch} ({cfg.n_layers} layers, {n_params} params, f32) batch {shape}, "
+              f"{FAMILY_NEW} new, through the launcher: K9 {launches[0]} K10 {launches[1]} launches "
+              f"(a prefill's; 0 in decode); prefill logits gap {pre_gap:.3e} (tol {PREFILL_TOL}), "
+              f"first decode gap {dec_gap:.3e} (tol {DECODE_TOL}); teacher-forced against a full "
+              f"forward: gap {tf_gap:.3e}, tokens agree {int(same.sum())} of {same.numel()} "
+              f"({int(firm.sum())} with a top-2 margin above twice the gap, all agree)  [{card}]",
+              flush=True)
+        print(f"phase15 {arch} prefill_ms={prefill_ms:.3f} decode_ms_per_token={decode_ms:.3f} "
+              f"decode_tokens_per_s={B * 1e3 / decode_ms:.2f} launcher_tokens_per_s="
+              f"{summary['tokens_per_s']} (prefill included) peak_device_memory_gib={peak:.2f}; "
+              f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+        out["flash_attention"][arch] = launches[0]
+        if launches[1]:
+            out["ssd_chunk_scan"][arch] = launches[1]
+        del params, kl, kd
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -3323,6 +3505,10 @@ def main() -> None:
     mark("phase 14")
     platform = phase14(dev, card)
 
+    # ---- phase 15: the other LM families served -----------------------------
+    mark("phase 15")
+    families = phase15(dev, card)
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -3337,7 +3523,9 @@ def main() -> None:
     uplink = {path: f"--agg {path}, {uplink_launches[f'{path}_rounds']} rounds"
               for path in ("hier", "quant4", "secure")}
     lm = {k: dict(launches_training=lm_train[k]["launches"], training_path=lm_train[k]["main_path"],
-                  main_path=lm_launches[k]["main_path"])
+                  main_path=lm_launches[k]["main_path"], launches_families={
+                      **families[k], "main_path": f"phase 15: serve --full-size, one prefill and "
+                                                  f"{FAMILY_NEW} new tokens per arch"})
           for k in ("flash_attention", "ssd_chunk_scan")}
     demo = lm_train["fedavg_masked_mean"]
     kernels = [

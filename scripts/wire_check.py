@@ -5,11 +5,11 @@ phase 13 alone.
     python3 scripts/wire_check.py
 
 Builds the kernel library, then runs phase 13a (the quant8 socket run at
-qwen3-1.7b's full width cut to 2 layers, 3 flushes from 2 worker
+qwen3-1.7b's full width cut to 2 layers, 2 flushes from 2 worker
 processes of 2 clients each: K1 once a flush, the recorded schedule
 replayed on the card within 1e-5, the landing loop's host ms by step; K1 at a flush's shape bitwise against its
 plain version, with its device ms), 13b (the dense run snapshotted after
-4 landings, killed after 5 and restored from snapshot + WAL, the WAL's
+2 landings, killed after 3 and restored from snapshot + WAL, the WAL's
 schedule replayed bitwise) and 13c (the launcher's socket, replay, durable
 and restore paths at the reduced size), and prints the phase's seconds.
 Exits non-zero without a card or on any disagreement.

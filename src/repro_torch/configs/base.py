@@ -60,6 +60,14 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
+    def has_decode(self) -> bool:
+        return not self.is_encoder_only
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts
         (``repro/configs/base.py::ArchConfig.reduced``)."""

@@ -45,7 +45,7 @@ reports the same metrics. quant8 and hier move their own rows
 one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
 (what XLA's SPMD does for them in the reference). The tree layout (slice 9)
 raises ``NotImplementedError``, as do the LM families other than dense and
-ssm (slice 7c).
+ssm (slice 7d).
 """
 from __future__ import annotations
 
@@ -118,13 +118,16 @@ def loss_for(cfg) -> Callable:
     """``(params, batch) -> (loss, metrics)`` for the config's family."""
     if cfg.family == "yolo":
         return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
-    transformer.check_family(cfg)
+    transformer.check_trainable(cfg)
     return lambda params, batch: transformer.loss_fn(cfg, params, batch)
 
 
 def make_template(cfg) -> PyTree:
+    """The trained model's template; an LM family the port does not train
+    yet raises (``transformer.check_trainable``)."""
     if cfg.family == "yolo":
         return yolov3.template(cfg)
+    transformer.check_trainable(cfg)
     return transformer.template(cfg)
 
 

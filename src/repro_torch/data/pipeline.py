@@ -4,7 +4,7 @@ branches.
 
 NumPy only: the same seed gives bit-identical batches to the reference's.
 The batches stay NumPy; the caller moves them to its device
-(``core.rounds.to_device``). The audio and vlm branches belong to slice 7c.
+(``core.rounds.to_device``). The audio and vlm branches belong to slice 7d.
 """
 from __future__ import annotations
 
@@ -152,7 +152,7 @@ def fed_batches(cfg: ArchConfig, fed: FedConfig, batch: int, seq: int, seed: int
     """
     C, E = fed.n_clients, fed.local_steps
     if cfg.modality in ("audio", "vlm"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.modality} batches are ported in slice 7c")
+        raise NotImplementedError(f"{cfg.name}: {cfg.modality} batches are ported in slice 7d")
     if partition_name != "stream":
         if cfg.family == "yolo":
             gen, _, _ = detection_suite(cfg, fed, batch, img_size, partition_name, seed, alpha=alpha)

@@ -4,7 +4,7 @@ Markov token streams (``MarkovTokens``, ``token_batches``).
 
 A NumPy copy: the same ``np.random.default_rng`` seed gives bit-identical
 images, boxes and tokens to the reference's. The audio generator belongs to
-slice 7c.
+slice 7d.
 """
 from __future__ import annotations
 

@@ -14,13 +14,15 @@ synthetic requests through an ``InferenceClient`` and prints the
 QPS/latency/freshness summary as one JSON line. ``--store`` / ``--task-id``
 restore the federated model from a COS store written by either package,
 published at the stored round version. ``--one-shot`` decodes one batch and
-exits. LM archs (qwen3-1.7b, mamba2-1.3b) prefill ``--batch`` random prompts
-of ``--prompt-len`` tokens and decode ``--new-tokens`` more (greedy, or
-sampled at ``--temperature``), with ``attention_impl`` and ``ssm_impl`` set
-to ``"kernel"``: flash attention (K9) and the SSD chunk scan (K10) run in the
-prefill on the card, their plain versions on the CPU. ``--arch`` defaults to
-qwen3-1.7b, as the reference's does. ``--device`` defaults to ``cuda`` and
-never falls back to the CPU.
+exits. LM archs of every family prefill ``--batch`` random prompts of
+``--prompt-len`` tokens (a vlm arch behind ``n_image_tokens`` random image
+embeddings) and decode ``--new-tokens`` more (greedy, or sampled at
+``--temperature``), with ``attention_impl`` and ``ssm_impl`` set to
+``"kernel"``: flash attention (K9) and the SSD chunk scan (K10) run in the
+prefill on the card, their plain versions on the CPU. An encoder-only arch
+(hubert-xlarge) has no decode step and is refused, as the reference
+refuses it. ``--arch`` defaults to qwen3-1.7b, as the reference's does.
+``--device`` defaults to ``cuda`` and never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -39,20 +41,27 @@ from repro_torch.models.yolov3 import FedYOLOv3
 
 
 def generate(cfg, params, prompts: torch.Tensor, new_tokens: int, temperature: float = 0.0,
-             generator: torch.Generator | None = None) -> torch.Tensor:
+             generator: torch.Generator | None = None,
+             images: torch.Tensor | None = None) -> torch.Tensor:
     """prompts (B, S) int -> (B, new_tokens) int64: prefill with the cache
-    sized for ``S + new_tokens``, then one ``decode_step`` per new token;
-    greedy at ``temperature`` 0, else sampled from ``generator``."""
+    sized for ``ni + S + new_tokens``, then one ``decode_step`` per new
+    token at positions from ``ni + S``; greedy at ``temperature`` 0, else
+    sampled from ``generator``. A vlm config takes ``images`` (B, ni,
+    d_model), ni its ``n_image_tokens``, prepended to the prompts."""
     from repro_torch.models import serving as MS
 
     B, Sq = prompts.shape
+    ni = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+    batch = {"tokens": prompts}
+    if ni:
+        batch["images"] = images
     with torch.inference_mode():
-        logits, cache = MS.prefill(cfg, params, {"tokens": prompts}, max_len=Sq + new_tokens)
+        logits, cache = MS.prefill(cfg, params, batch, max_len=ni + Sq + new_tokens)
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out = []
         for i in range(new_tokens):
             out.append(tok)
-            logits, cache = MS.decode_step(cfg, params, cache, tok, Sq + i)
+            logits, cache = MS.decode_step(cfg, params, cache, tok, ni + Sq + i)
             if temperature > 0:
                 probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator)
@@ -70,17 +79,31 @@ def lm_params(cfg, dev: torch.device):
     return P.init_params(T.template(cfg), torch.Generator(device=dev).manual_seed(0))
 
 
+def lm_inputs(cfg, batch: int, prompt_len: int, dev: torch.device):
+    """The launcher's random inputs, as the reference's launcher draws them
+    from ``default_rng(0)``: prompts (batch, prompt_len), then for a vlm
+    arch image embeddings (batch, n_image_tokens, d_model) float32, else
+    None."""
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    images = None
+    if cfg.modality == "vlm":
+        images = torch.from_numpy(
+            (rng.normal(size=(batch, cfg.n_image_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+        ).to(dev)
+    return prompts, images
+
+
 def serve_lm(cfg, args, dev: torch.device, params=None) -> dict:
-    """Prefill random prompts (``default_rng(0)``) and decode; print and
+    """Prefill random prompts (:func:`lm_inputs`) and decode; print and
     return the JSON summary. ``params`` default to :func:`lm_params`."""
     cfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
     if params is None:
         params = lm_params(cfg, dev)
-    rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    prompts, images = lm_inputs(cfg, args.batch, args.prompt_len, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    toks = generate(cfg, params, prompts, args.new_tokens, args.temperature, gen)
+    toks = generate(cfg, params, prompts, args.new_tokens, args.temperature, gen, images)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -230,6 +253,8 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(e.args[0]) from None
     if not args.full_size:
         cfg = cfg.reduced()
+    if cfg.family != "yolo" and not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode step (DESIGN.md)")
     dev = D.resolve(args.device)
     if cfg.family != "yolo":
         serve_lm(cfg, args, dev)

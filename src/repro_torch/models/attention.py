@@ -149,7 +149,13 @@ def attention_block(p: dict, x: torch.Tensor, cfg, *, window: int = 0, positions
     """Full train/prefill attention block (no cache); window=0 -> full.
 
     With return_kv=True also returns cache-ready (k, v): full-length for
-    global layers, the trailing ``window`` positions for windowed layers.
+    global layers; for windowed layers the trailing ``window`` positions in
+    ring order, slot i holding the position p with p % window == i, as
+    :func:`decode_attention` reads them. (The reference stores them in
+    position order, which is ring order only when S % window == 0; past
+    that its decode evicts a key inside the window and keeps a stale one.
+    The port rolls them into place: the same cache wherever the reference's
+    is right.)
     """
     B, S, _ = x.shape
     if positions is None:
@@ -175,7 +181,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg, *, window: int = 0, positions
     out = einsum("bshk,hkd->bsd", out, p["wo"])
     if return_kv:
         if window and S >= window:
-            kc, vc = k[:, -window:], v[:, -window:]
+            # position S - window + j goes to slot (S + j) % window
+            kc, vc = (torch.roll(a[:, -window:], S % window, dims=1) for a in (k, v))
         elif window:
             pad = (0, 0, 0, 0, 0, window - S)
             kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)

@@ -26,8 +26,10 @@ scalar there and a Python int here (it keys the PRNG on the host).
 
 :func:`lm_params_from_reference` and :func:`lm_params_to_reference` carry an
 LM's param tree (``transformer.template``'s layout, layer stacks stacked) in
-both directions; the layout is the same in both packages, so only the
-container changes and a round trip is bit-exact.
+both directions, for every family: ``layers``, gemma3's ``groups`` and
+``tail``, the hybrid's ``mamba_groups`` and ``shared``, the ``moe`` experts,
+llava's ``img_proj`` and an untied ``lm_head``. The layout is the same in both
+packages, so only the container changes and a round trip is bit-exact.
 """
 from __future__ import annotations
 

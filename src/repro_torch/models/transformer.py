@@ -1,12 +1,18 @@
 """LM orchestration: templates, embedding, the trunk, the logits and the
 training loss (port of ``repro/models/transformer.py``).
 
-Families ported: ``dense`` without a local:global pattern (pre-norm GQA +
-SwiGLU, qwen3) and ``ssm`` (attention-free Mamba2 SSD blocks, mamba2). The
-layer stacks stay stacked ((n_layers, ...) leaves, the reference's layout),
-and the reference's ``lax.scan`` over layers is a Python loop over the
-layers. MoE, gemma3's local/global groups, the zamba2 hybrid, vlm and audio
-raise ``NotImplementedError`` (slice 7c). The reference's
+Families: ``dense`` / ``vlm`` / ``audio`` (pre-norm GQA + SwiGLU; vlm
+prepends projected image embeddings, audio embeds its frames), gemma3's
+local:global pattern (period groups of ``local_global_period`` layers, the
+last of each global, the rest windowed, plus a tail), ``moe`` (GShard top-k
+FFN, ``models/moe.py``), ``ssm`` (Mamba2 SSD blocks) and ``hybrid``
+(zamba2: Mamba2 groups with one shared attention + MLP block after each
+group). The layer stacks stay stacked ((n_layers, ...) or (n_groups,
+period, ...) leaves, the reference's layout), and the reference's
+``lax.scan`` over layers is a Python loop. Every family has its template
+and its serving path (``models/serving.py``); the training trunk and loss
+run the dense and ssm text families, and raise ``NotImplementedError`` for
+the others (:func:`check_trainable`, slice 7d). The reference's
 ``models/shard_ctx.py::constrain`` is a sharding hint, the identity on one
 card, and is not ported.
 
@@ -27,22 +33,28 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import einsum, gold_logit, rms_norm, softmax_cross_entropy, swiglu
 from repro_torch.models.params import ParamInfo, flatten_with_paths, map_tree, unflatten
 
 PyTree = Any
 
 VOCAB_PAD = 16  # pad vocab to the model-axis width; padded logits masked
-LATER = "slice 7c"
+LATER = "slice 7d"
 
 
-def check_family(cfg: ArchConfig) -> None:
-    """Raise for the LM configurations the port does not serve yet."""
+def is_stacked_dense(cfg) -> bool:
+    """One (n_layers, ...) stack of attention layers (no period groups)."""
+    return cfg.family in ("dense", "vlm", "audio", "moe") and not cfg.local_global_period
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for the LM configurations the port does not train yet."""
     if cfg.family not in ("dense", "ssm") or cfg.local_global_period or cfg.modality != "text":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (modality {cfg.modality!r}, local_global_period "
-            f"{cfg.local_global_period}) is ported in {LATER}; the port serves dense and ssm text "
-            f"models")
+            f"{cfg.name}: training family {cfg.family!r} (modality {cfg.modality!r}, "
+            f"local_global_period {cfg.local_global_period}) is ported in {LATER}; the port "
+            f"trains dense and ssm text models and serves every LM family")
 
 
 def _mlp_template(cfg, pa, ns):
@@ -56,12 +68,16 @@ def _mlp_template(cfg, pa, ns):
 
 def _dense_layer_template(cfg, pa=("layer",), ns=()):
     d = cfg.d_model
-    return {
+    t = {
         "norm1": ParamInfo(ns + (d,), pa + ("embed",), init="zeros"),
         "attn": attn.attention_template(cfg, pa, ns),
         "norm2": ParamInfo(ns + (d,), pa + ("embed",), init="zeros"),
-        "mlp": _mlp_template(cfg, pa, ns),
     }
+    if cfg.family == "moe":
+        t["moe"] = moe_mod.moe_template(cfg, pa, ns)
+    else:
+        t["mlp"] = _mlp_template(cfg, pa, ns)
+    return t
 
 
 def _ssm_layer_template(cfg, pa=("layer",), ns=()):
@@ -71,12 +87,22 @@ def _ssm_layer_template(cfg, pa=("layer",), ns=()):
     }
 
 
+def gemma_pattern(cfg) -> tuple[int, int]:
+    """(n_groups, n_tail) for the local:global period pattern."""
+    period = cfg.local_global_period
+    return cfg.n_layers // period, cfg.n_layers % period
+
+
+def layer_window(cfg, group_pos: int) -> int:
+    """Window for position-in-period: gemma3 = [W]*(p-1) + [0 (global)]."""
+    return cfg.window if group_pos != cfg.local_global_period - 1 else 0
+
+
 def padded_vocab(cfg: ArchConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
 
 
 def template(cfg: ArchConfig) -> PyTree:
-    check_family(cfg)
     d, v = cfg.d_model, padded_vocab(cfg)
     t: dict = {
         "embed": ParamInfo((v, d), ("vocab", "embed"), init="small_normal"),
@@ -84,16 +110,36 @@ def template(cfg: ArchConfig) -> PyTree:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamInfo((d, v), ("embed", "vocab"))
-    if cfg.family == "dense":
+    if cfg.modality == "vlm":
+        t["img_proj"] = ParamInfo((d, d), ("embed", None))
+    if is_stacked_dense(cfg):
         t["layers"] = _dense_layer_template(cfg, ("layer",), (cfg.n_layers,))
-    else:
+    elif cfg.local_global_period:  # gemma3
+        ng, nt = gemma_pattern(cfg)
+        t["groups"] = _dense_layer_template(cfg, ("group", "layer"),
+                                            (ng, cfg.local_global_period))
+        if nt:
+            t["tail"] = _dense_layer_template(cfg, ("layer",), (nt,))
+    elif cfg.family == "ssm":
         t["layers"] = _ssm_layer_template(cfg, ("layer",), (cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        ng = cfg.n_layers // cfg.shared_attn_period
+        t["mamba_groups"] = _ssm_layer_template(cfg, ("group", "layer"),
+                                                (ng, cfg.shared_attn_period))
+        t["shared"] = {
+            "norm1": ParamInfo((d,), ("embed",), init="zeros"),
+            "attn": attn.attention_template(cfg, (), ()),
+            "norm2": ParamInfo((d,), ("embed",), init="zeros"),
+            "mlp": _mlp_template(cfg, (), ()),
+        }
+    else:
+        raise ValueError(f"unsupported family {cfg.family}")
     return t
 
 
-def layer(params: PyTree, i: int) -> PyTree:
-    """Layer ``i``'s parameters: views into the stacked leaves."""
-    return map_tree(lambda w: w[i], params["layers"])
+def index(tree: PyTree, i: int) -> PyTree:
+    """Entry ``i`` of a stacked tree: views into its leaves."""
+    return map_tree(lambda w: w[i], tree)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -112,14 +158,20 @@ def ssm_block(cfg, p, x):
 
 
 def embed_inputs(cfg, params, batch) -> torch.Tensor:
-    check_family(cfg)
+    """Token embeddings; audio: the frames in the config's dtype; vlm: the
+    projected image embeddings (B, n_image_tokens, D) before the text's."""
+    if cfg.modality == "audio":
+        return batch["frames"].to(_dtype(cfg))
+    if cfg.modality == "vlm":
+        img = einsum("bnd,de->bne", batch["images"].to(_dtype(cfg)), params["img_proj"])
+        return torch.cat([img, params["embed"][batch["tokens"]]], dim=1)
     return params["embed"][batch["tokens"]]
 
 
 def unstack_layers(params: PyTree) -> list[PyTree]:
     """Every layer's parameters, views into the stacked leaves through
     ``unbind``: its backward stacks the layers' gradients once, where
-    indexing each layer (:func:`layer`) would zero-fill a full-size stacked
+    indexing each layer (:func:`index`) would zero-fill a full-size stacked
     gradient per layer and leaf."""
     leaves = list(flatten_with_paths(params["layers"]))
     split = [w.unbind(0) for _, w in leaves]
@@ -137,8 +189,9 @@ def remat(fn, *args):
 
 def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
     """Hidden states (B, S, D) -> (B, S, D) after all layers and the final
-    norm. Returns (hidden, aux_loss); aux is 0 without MoE."""
-    check_family(cfg)
+    norm. Returns (hidden, aux_loss); aux is 0 without MoE. The dense and
+    ssm text families only (:func:`check_trainable`)."""
+    check_trainable(cfg)
     for p in unstack_layers(params):
         if cfg.family == "dense":
             x = remat(lambda h, q: dense_block(cfg, q, h, cfg.window), x, p)
@@ -202,7 +255,9 @@ def _next_token_ce(cfg, params, hidden: torch.Tensor, tokens: torch.Tensor) -> t
 
 def loss_fn(cfg: ArchConfig, params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
     """The text training objective: next-token CE (+ the router's aux loss,
-    0 without MoE). batch {"tokens" (B, S) int} -> (loss, {"ce", "aux"})."""
+    0 without MoE). batch {"tokens" (B, S) int} -> (loss, {"ce", "aux"}).
+    The dense and ssm text families only (:func:`check_trainable`)."""
+    check_trainable(cfg)
     x = embed_inputs(cfg, params, batch)
     hidden, aux = trunk(cfg, params, x)
     ce = _next_token_ce(cfg, params, hidden, batch["tokens"])

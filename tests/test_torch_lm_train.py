@@ -115,7 +115,7 @@ def test_token_batches_are_bit_identical():
 
 def test_fed_batches_of_later_modalities_raise():
     cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), modality="audio")
-    with pytest.raises(NotImplementedError, match="slice 7c"):
+    with pytest.raises(NotImplementedError, match="slice 7d"):
         next(pipeline.fed_batches(cfg, rounds.FedConfig(n_clients=2), batch=1, seq=8))
 
 

@@ -328,14 +328,30 @@ def test_serve_cli_runs_the_port_service_on_cpu():
     assert out["dropped"] == 0 and out["requests"] == 4 and out["device"] == "cpu"
 
 
+def _serves_lm(arch: str) -> None:
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", arch, "--device", "cpu",
+              "--prompt-len", "16", "--new-tokens", "4"])
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["arch"] == f"{arch}-reduced" and len(out["generated"]) == 4 and out["device"] == "cpu"
+
+
 def test_serve_cli_refuses_unported_arch():
-    r = _run(["-m", "repro_torch.launch.serve", "--arch", "zamba2-2.7b", "--device", "cpu"])
-    assert r.returncode != 0 and "not ported yet" in r.stderr
+    """The hybrid once refused here is served since slice 7c; an arch
+    neither package knows is refused."""
+    _serves_lm("zamba2-2.7b")
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "no-such-arch", "--device", "cpu"])
+    assert r.returncode != 0 and "unknown arch" in r.stderr
 
 
 def test_serve_cli_refuses_unported_moe_arch():
-    r = _run(["-m", "repro_torch.launch.serve", "--arch", "granite-moe-1b-a400m", "--device", "cpu"])
-    assert r.returncode != 0 and "not ported yet" in r.stderr
+    """The MoE arch once refused here is served since slice 7c."""
+    _serves_lm("granite-moe-1b-a400m")
+
+
+def test_serve_cli_refuses_the_encoder_only_arch():
+    r = _run(["-m", "repro_torch.launch.serve", "--arch", "hubert-xlarge", "--device", "cpu"])
+    assert r.returncode != 0 and "hubert-xlarge is encoder-only: no decode step" in r.stderr
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -341,9 +341,9 @@ def test_unported_configurations_raise():
     # (tests/test_torch_participation.py); a mesh that shards the flat dim is not
     for kw in (dict(aggregation="fedsgd"), dict(participation="compact")):
         assert rounds.make_aggregator(TCFG, _fed("torch", **kw)).ctx.fed == _fed("torch", **kw)
-    # microbatches are ported (tests/test_torch_lm_train.py); the LM families
-    # beyond dense and ssm are not
-    with pytest.raises(NotImplementedError, match="slice 7c"):
+    # microbatches are ported (tests/test_torch_lm_train.py); training the LM
+    # families beyond dense and ssm is not (they serve since slice 7c)
+    with pytest.raises(NotImplementedError, match="slice 7d"):
         rounds.make_aggregator(dataclasses.replace(get_arch("qwen3-1.7b").reduced(), family="moe"),
                                _fed("torch"))
     with pytest.raises(ValueError, match="microbatches"):
