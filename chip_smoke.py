@@ -264,6 +264,29 @@ recorded every launch made; where no trace does, the kernels line says
    top-2 margin exceeds twice the gap (MoE: the tokens only, since GShard's
    capacity depends on the routing group); peak device memory at most 75
    GiB. Prints prefill ms, decode ms per token and tokens/s.
+16. The other LM families trained at full width through the launcher
+   (``repro_torch.launch.train.train_lm``, ``models/{transformer,moe}.py``):
+   random f32 weights from seed 0, eq6, C = 2, 2 rounds of one local step
+   at batch 1: granite-moe-1b-a400m (adamw, 1 x 1024) and hubert-xlarge
+   (adamw, 1 x 1024 frames) whole, zamba2-2.7b cut to 18 layers (2 groups,
+   the shared block applied twice; adamw, 1 x 1024), llava-next-34b cut to
+   1 layer (adamw, 1 x (2880 image tokens + 1088)), gemma3-27b cut to a
+   tail of 2 windowed layers (sgd 0.05, 1 x 1536, 512 past its window).
+   (a) Finite losses, K9 launched 48, 0, 4, 2 and 4 times and K10 36 times
+   (zamba2) a local step (the forward and the checkpoint's recompute), K1
+   once a round, peak device memory at most 75 GiB; ms a round and the
+   eq6 aggregation alone (CUDA events). (b) One masked adamw eq6 round of
+   each new family at the reduced size, seq 128 (MoE gshard and sort,
+   gemma3 at 8 layers, zamba2 at 4, llava with dead heads, hubert) on the
+   card against the host from one state, at phase 10c's bounds; MoE's
+   first-step expert choices compared first (at most 1 in 1000 may flip,
+   and the round is held whole only where none does); exact K9/K10 counts.
+   (c) Gradients, kernel branch against plain branch on the card at phase
+   10b's bounds: K9 windowed (gemma3's tail layer, window 1024, 1 x 1536),
+   K9 at llava's S 3968 (the 8 dead heads' ``wq`` gradient exactly 0 on
+   both) and K10 at zamba2's N 64 (one group of 9 Mamba2 layers and the
+   shared block). (d) ``examples/train_100m`` at its defaults for 3 rounds:
+   the reference's JSON keys, K1 once a round, K9 twice a layer a step.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -369,7 +392,9 @@ FLASH_CASES = [((4, 16, 8, 1024, 128), True, 0, torch.float32),
                ((4, 32, 16, 1536, 128), True, 1024, torch.float32),
                ((2, 64, 8, 3968, 128), True, 0, torch.float32),
                ((4, 48, 8, 1024, 128), True, 0, torch.float32),
-               ((4, 32, 8, 1024, 128), True, 0, torch.float32)]
+               ((4, 32, 8, 1024, 128), True, 0, torch.float32),
+               # phase 16d's train_100m: 8 q heads over 4 at hd 640 / 8 = 80, S 128
+               ((2, 8, 4, 128, 80), True, 0, torch.float32)]
 SSD_CASES = [(4, 1024, 64, 64, 128, 128, torch.float32), (1, 32, 2, 8, 4, 8, torch.float32),
              (2, 64, 3, 16, 8, 16, torch.float32), (1, 128, 1, 64, 16, 32, torch.float32),
              (4, 1024, 64, 64, 128, 128, torch.bfloat16),
@@ -480,6 +505,42 @@ FAMILY_ROWS = [("granite-moe-1b-a400m", 0, 4, 1024, 24, 0), ("grok-1-314b", 2, 4
                ("gemma3-27b", 14, 4, 1536, 14, 0), ("zamba2-2.7b", 0, 4, 1024, 6, 54),
                ("llava-next-34b", 6, 2, 1088, 6, 0), ("minitron-8b", 0, 4, 1024, 32, 0)]
 FAMILY_NEW, FAMILY_PEAK_GIB = 16, 75.0
+# 16: slice 7d, the other LM families trained through the launcher
+# (``train_lm``) at their published widths, f32, random weights from seed
+# 0, the launcher's eq6, C 2, 2 rounds of one local step, batch 1. (arch,
+# layers kept (0: all), positions a sequence, optimizer and lr, K9 and K10
+# launches a local step). Depth is cut where a round passes 75 GiB at
+# about 40 bytes a parameter (phase 10d): zamba2 to 2 groups (18 layers,
+# the shared block applied twice), llava to 1 layer (1 x (2880 + 1088):
+# the plain attention backward's (1, 64, 3968, 3968) f32 buffers), gemma3
+# to a tail of 2 windowed layers under sgd (a period group with its global
+# layer is 3.89e9 parameters, about 87 GiB even under sgd), 512 positions
+# past its 1024 window; grok (5.73e9 parameters a layer) only in 16b
+FAMILY_TRAIN_ROWS = [("granite-moe-1b-a400m", 0, 1024, "adamw", 3e-3, 48, 0),
+                     ("hubert-xlarge", 0, 1024, "adamw", 3e-3, 0, 0),
+                     ("zamba2-2.7b", 18, 1024, "adamw", 3e-3, 4, 36),
+                     ("llava-next-34b", 1, 3968, "adamw", 3e-3, 2, 0),
+                     ("gemma3-27b", 2, 1536, "sgd", 0.05, 4, 0)]
+FAMILY_TRAIN_CLIENTS, FAMILY_TRAIN_ROUNDS = 2, 2
+# 16b: one masked adamw eq6 round of each new family, reduced, on the card
+# against the host (phase 10c's settings and bounds;
+# tests/test_torch_lm_families_train.py's cases): (case, arch, overrides)
+FAMILY_TRAIN_REDUCED = [("moe-gshard", "granite-moe-1b-a400m", {}),
+                        ("moe-sort", "granite-moe-1b-a400m", {"moe_impl": "sort"}),
+                        ("gemma3", "gemma3-27b", {"n_layers": 8}),
+                        ("hybrid", "zamba2-2.7b", {"n_layers": 4}),
+                        ("vlm-padded", "llava-next-34b",  # head_dim 64: K9 takes hd
+                         # a multiple of 16 (the CPU tests' 256 / 6 = 42 is not)
+                         {"n_heads": 6, "n_kv_heads": 2, "q_group_pad": 4, "head_dim": 64}),
+                        ("audio", "hubert-xlarge", {})]
+# 16c: gradients through K9 windowed (gemma3's tail layer, window 1024, hd
+# 128), K9 at llava's S 3968 with 8 dead heads, and K10 at zamba2's N 64
+# (one group: 9 Mamba2 layers and the shared block), phase 10b's bounds:
+# (arch, layers kept, positions, K9 and K10 launches)
+FAMILY_GRAD_ROWS = [("gemma3-27b", 1, 1536, 2, 0), ("llava-next-34b", 1, 3968, 2, 0),
+                    ("zamba2-2.7b", 9, 1024, 2, 18)]
+# 16d: examples/train_100m at its defaults (4 clients, batch 2 x 128)
+TRAIN_100M_ROUNDS = 3
 
 
 def fail(msg: str) -> None:
@@ -3282,6 +3343,318 @@ def phase15(dev, card: str) -> dict:
     return out
 
 
+def _lm_batch(cfg, positions: int, dev) -> dict:
+    """One sequence of ``positions`` for a one-step loss: seed-0 tokens
+    (llava's behind 2880 image embeddings) on ``dev``."""
+    rng = np.random.default_rng(0)
+    ni = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+    toks = rng.integers(0, cfg.vocab_size, (1, positions - ni))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if ni:
+        batch["images"] = torch.from_numpy(
+            (rng.standard_normal((1, ni, cfg.d_model)) * 0.1).astype(np.float32)).to(dev)
+    return batch
+
+
+def moe_choices(cfg, params, batch) -> list:
+    """The ordered top-k experts of every token at every MoE layer, from a
+    forward layer by layer (tests/test_torch_lm_families_train.py)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import einsum, rms_norm
+
+    out = []
+    with torch.no_grad():
+        x = T.embed_inputs(cfg, params, batch)
+        for q in T.unstack(params["layers"]):
+            h = x + A.attention_block(q["attn"], rms_norm(x, q["norm1"], cfg.norm_eps), cfg,
+                                      window=cfg.window)
+            g = rms_norm(h, q["norm2"], cfg.norm_eps)
+            logits = einsum("bsd,de->bse", g, q["moe"]["router"])
+            out.append(M.top_k(torch.softmax(logits, -1), cfg.experts_per_token)[1].cpu())
+            x, _ = T.dense_block(cfg, q, x, cfg.window)
+    return out
+
+
+def phase16a(dev, card: str) -> dict:
+    """Each of ``FAMILY_TRAIN_ROWS`` trained by the launcher's ``train_lm``:
+    finite losses, exact K9/K10/K1 launches, the peak; ms a round, the eq6
+    aggregation alone. -> {kernel: {arch: launches}}."""
+    from repro_torch.core import packing
+    from repro_torch.core.aggregators.eq6 import Eq6
+    from repro_torch.core.server import FLServer
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import pack
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+
+    counters = {"flash_attention": kflash.flash_attention, "ssd_chunk_scan": kssd.ssd_chunk_scan,
+                "packed_bucket_reduce": pack.packed_bucket_reduce}
+    out: dict = {k: {} for k in counters}
+    for arch, layers, seq, opt, lr, k9, k10 in FAMILY_TRAIN_ROWS:
+        t0 = time.perf_counter()
+        cfg = family_cfg(arch, layers)
+        args = train.build_parser().parse_args([
+            "--task", "lm", "--arch", arch, "--full-size", "--clients", str(FAMILY_TRAIN_CLIENTS),
+            "--rounds", str(FAMILY_TRAIN_ROUNDS), "--batch", "1", "--seq", str(seq),
+            "--optimizer", opt, "--lr", str(lr), "--device", str(dev)])
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        with _Timed(FLServer, "run_round") as rt, _Timed(Eq6, "aggregate") as at:
+            run = train.train_lm(args, log=lambda msg: print(f"phase16a {arch} {msg}", flush=True),
+                                 cfg=cfg)
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        server = run.server
+        losses = [r.loss for r in server.history]
+        steps = FAMILY_TRAIN_ROUNDS * server.fed.n_clients * server.fed.local_steps
+        check(len(losses) == FAMILY_TRAIN_ROUNDS and all(np.isfinite(losses)),
+              f"phase16a {arch}: losses {losses}")
+        want = (k9 * steps, k10 * steps)
+        check((launches["flash_attention"], launches["ssd_chunk_scan"]) == want,
+              f"phase16a {arch}: {launches} in {steps} local steps (want K9 {k9 * steps}, K10 "
+              f"{k10 * steps})")
+        check(launches["packed_bucket_reduce"] == FAMILY_TRAIN_ROUNDS,
+              f"phase16a {arch}: K1 launched {launches['packed_bucket_reduce']} times in "
+              f"{FAMILY_TRAIN_ROUNDS} rounds")
+        check(peak <= FAMILY_PEAK_GIB, f"phase16a {arch}: peak {peak:.2f} GiB > {FAMILY_PEAK_GIB}")
+        n = server.state["params"].shape[1]
+        print(f"phase16a {arch} ({cfg.n_layers} layers, {n} params, f32, {opt} {lr}), "
+              f"{server.fed.n_clients} clients x 1 x {seq} positions, eq6 top-{server.fed.topn}, "
+              f"through the launcher: loss {' '.join(repr(v) for v in losses)}; launches "
+              f"{launches}  [{card}]", flush=True)
+        print(f"phase16a {arch} ms_per_round={' '.join(f'{v:.3f}' for v in rt.ms)} "
+              f"aggregation_ms={' '.join(f'{v:.3f}' for v in at.ms)} peak_device_memory_gib="
+              f"{peak:.2f}; {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+        for k, v in launches.items():
+            if v:
+                out[k][arch] = v
+        del run, server
+        packing.bucket_ids_on.cache_clear()
+        packing.bucket_ids.cache_clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase16b(dev, card: str) -> None:
+    """One masked adamw eq6 round of each new family, reduced, on the card
+    and on the host from one state: phase 10c's bounds on the loss, the
+    params and the trained rows the round aggregates, and the participants'
+    same eq6 upload choices from the card's and the host's bucket sums (the
+    ``prev_sums`` the round hands on). MoE is held where its routing is
+    equal: the first step's expert choices must not flip."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import compression as comp
+    from repro_torch.core import rounds
+    from repro_torch.core.aggregators.eq6 import Eq6
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.models import params as P
+    from repro_torch.optim import adamw
+
+    lr, m = 3e-3, np.array([1, 0, 1], np.float32)
+    for case, arch, kw in FAMILY_TRAIN_REDUCED:
+        cfg = dataclasses.replace(get_arch(arch).reduced(), attention_impl="kernel",
+                                  ssm_impl="kernel", **kw)
+        fed = FedConfig(n_clients=3, local_steps=2, aggregation="eq6", topn=1,
+                        participation="masked", agg_impl="kernel")
+        batch = next(fed_batches(cfg, fed, batch=2, seq=128))
+        host0 = rounds.make_state(cfg, fed, adamw(lr), torch.Generator().manual_seed(0), "cpu")
+        flips = 0
+        if cfg.family == "moe":  # the first local step of client 0 at the initial state
+            tree = P.map_tree(lambda x: x[0], rounds.unpacked_params(cfg, fed, host0))
+            first = {k: torch.as_tensor(v[0, 0]) for k, v in batch.items()}
+            want = moe_choices(cfg, tree, first)
+            got = moe_choices(cfg, P.map_tree(lambda x: x.to(dev), tree),
+                              {k: v.to(dev) for k, v in first.items()})
+            flips = sum(int((a != b).any(-1).sum()) for a, b in zip(want, got))
+            n_tok = sum(a.shape[0] * a.shape[1] for a in want)
+            check(flips == 0, f"phase16b {case}: {flips} of {n_tok} tokens route differently on "
+                              f"the card")
+        out, rows = [], []
+        kflash.flash_attention.launches = kssd.ssd_chunk_scan.launches = 0
+        real = Eq6.aggregate
+
+        def kept(self, packed, *a, **kw):  # the trained rows the round aggregates
+            rows.append(packed.to("cpu", copy=True))
+            return real(self, packed, *a, **kw)
+
+        Eq6.aggregate = kept
+        try:
+            for where in (dev, torch.device("cpu")):
+                st = {k: ({kk: vv.clone().to(where) for kk, vv in v.items()} if isinstance(v, dict)
+                          else v.clone().to(where) if torch.is_tensor(v) else v)
+                      for k, v in host0.items()}
+                st, met = rounds.build_fed_round(cfg, fed, adamw(lr))(
+                    st, rounds.to_device(batch, where),
+                    rounds.participation_input(fed, m, m / m.sum()))
+                out.append((float(met["loss"]), st["params"].cpu(), st["agg"]["prev_sums"].cpu()))
+        finally:
+            Eq6.aggregate = real
+        launches = (kflash.flash_attention.launches, kssd.ssd_chunk_scan.launches)
+        (lc, pc, sc), (lh, ph, sh) = out
+        attn_layers = (cfg.n_layers // cfg.shared_attn_period if cfg.family == "hybrid"
+                       else 0 if not cfg.causal else cfg.n_layers)
+        ssm_layers = cfg.n_layers if cfg.family == "hybrid" else 0
+        steps = 2 * fed.local_steps  # 2 clients take part
+        check(launches == (2 * attn_layers * steps, 2 * ssm_layers * steps),
+              f"phase16b {case}: K9/K10 launches {launches} on the card")
+        check(np.isfinite(lc) and np.isfinite(lh), f"phase16b {case}: losses {lc} {lh}")
+        gaps = []
+        for name, a, b in (("params", pc, ph), ("trained rows", *rows)):
+            gap = (a - b).abs()
+            outside = gap > 1e-5 + 1e-4 * b.abs()
+            gaps.append(f"{name} max gap {float(gap.max()):.3e}, {int(outside.sum())} of "
+                        f"{gap.numel()} outside rtol 1e-4 / atol 1e-5")
+            check(float(outside.float().mean()) < 5e-4
+                  and float(gap.max()) <= 2 * fed.local_steps * lr,
+                  f"phase16b {case}: {name}: {gaps[-1]}")
+        check(abs(lc - lh) <= 1e-5 * abs(lh), f"phase16b {case}: card loss {lc} != host {lh}")
+        # what the sums decide: eq6's top-n upload choices against the sums
+        # the round started from (the next round ranks against these sums),
+        # for the clients that take part; a non-participant's upload has
+        # weight 0, and its untrained row's scores are rounding noise
+        part = torch.as_tensor(m) > 0
+        s0 = host0["agg"]["prev_sums"][part]
+        vc, vh = comp.contribution_scores(s0, sc[part]), comp.contribution_scores(s0, sh[part])
+        uc, uh = comp.topn_mask(vc, fed.topn), comp.topn_mask(vh, fed.topn)
+        check(bool((uc == uh).all()), f"phase16b {case}: eq6 uploads card {uc.tolist()} != host "
+                                      f"{uh.tolist()} (scores {vc.tolist()} / {vh.tolist()})")
+        top = torch.sort(vh, dim=-1, descending=True).values
+        margin = float(((top[:, fed.topn - 1] - top[:, fed.topn]) / top[:, fed.topn - 1]).min())
+        print(f"phase16b {case} ({cfg.name}, {cfg.n_layers} layers) one masked adamw eq6 round at "
+              f"seq 128, K9/K10 {launches} on the card: card loss {lc!r} host loss {lh!r} (rel gap "
+              f"{abs(lc - lh) / abs(lh):.3e}); {'; '.join(gaps)}; prev_sums max gap "
+              f"{float((sc - sh).abs().max()):.3e} (max rel gap "
+              f"{float(((sc - sh).abs() / sh.abs()).max()):.3e}); the participants' eq6 uploads equal on card and host "
+              f"(host's top-{fed.topn} score margin {margin:.3e} of the score)"
+              + (f"; 0 routing flips in the first step" if cfg.family == "moe" else "")
+              + f"  [{card}]", flush=True)
+
+
+def phase16c(dev, card: str) -> None:
+    """Gradients through K9 windowed, K9 at llava's S 3968 with dead heads
+    and K10 at zamba2's N 64 (``FAMILY_GRAD_ROWS``): kernel branch against
+    plain branch on the card at phase 10b's bounds; llava's dead heads get
+    an exactly zero ``wq`` gradient on both."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.models import attention as A
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+
+    for arch, layers, positions, k9, k10 in FAMILY_GRAD_ROWS:
+        cfg = family_cfg(arch, layers)
+        kcfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
+        rcfg = dataclasses.replace(cfg, attention_impl="ref", ssm_impl="ref")
+        weights = P.init_params(T.template(cfg), torch.Generator(device=dev).manual_seed(0))
+        batch = _lm_batch(cfg, positions, dev)
+        paths = [p for p, _ in P.flatten_with_paths(weights)]
+
+        def run(c):
+            p = P.map_tree(lambda w: w.clone().requires_grad_(True), weights)
+            loss, _ = T.loss_fn(c, p, batch)
+            leaves = [w for _, w in P.flatten_with_paths(p)]
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss.detach(), [torch.zeros_like(w) if g is None else g
+                                   for w, g in zip(leaves, grads)]
+
+        kflash.flash_attention.launches = kssd.ssd_chunk_scan.launches = 0
+        lk, gk = run(kcfg)
+        torch.cuda.synchronize()
+        launches = (kflash.flash_attention.launches, kssd.ssd_chunk_scan.launches)
+        check(launches == (k9, k10), f"phase16c {arch}: K9/K10 launches {launches} in one "
+                                     f"checkpointed step (want {(k9, k10)})")
+        lr_, gr = run(rcfg)
+        check(bool(torch.isfinite(lk)) and abs(float(lk - lr_)) <= GRAD_LOSS_RTOL * abs(float(lr_)),
+              f"phase16c {arch}: kernel loss {float(lk)} != plain {float(lr_)} at rtol "
+              f"{GRAD_LOSS_RTOL}")
+        worst, scale = 0.0, 0.0
+        for path, a, b in zip(paths, gk, gr):
+            check(torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+                  f"phase16c {arch}: grad {path} kernel != plain at rtol {GRAD_RTOL} / atol "
+                  f"{GRAD_ATOL} (max gap {float((a - b).abs().max()):.3e})")
+            worst = max(worst, float((a - b).abs().max()))
+            scale = max(scale, float(b.abs().max()))
+        note = ""
+        if cfg.q_group_pad:
+            dead = A.head_mask(cfg, dev) == 0
+            wq = paths.index("layers/attn/wq")
+            for g in (gk[wq], gr[wq]):
+                check(not bool(g[:, :, dead].any()) and bool(g[:, :, ~dead].any()),
+                      f"phase16c {arch}: a dead head's wq gradient is not 0")
+            note = f"; the {int(dead.sum())} dead heads' wq gradient exactly 0 on both"
+        shape = f"1 x {positions}" + (f" ({cfg.n_image_tokens} image tokens)"
+                                      if cfg.modality == "vlm" else "")
+        print(f"phase16c {arch} ({cfg.n_layers} layers, full width, f32) batch {shape}: loss "
+              f"kernel {float(lk)!r} plain {float(lr_)!r} (rel gap "
+              f"{abs(float(lk - lr_)) / abs(float(lr_)):.3e}, tol {GRAD_LOSS_RTOL}); grads max gap "
+              f"{worst:.3e} (largest grad {scale:.3e}; rtol {GRAD_RTOL} / atol {GRAD_ATOL}); K9/K10 "
+              f"launches {launches}{note}  [{card}]", flush=True)
+        del weights, gk, gr
+        torch.cuda.empty_cache()
+
+
+def phase16d(dev, card: str) -> dict:
+    """``examples/train_100m`` at its defaults for ``TRAIN_100M_ROUNDS``
+    rounds: the reference's JSON keys, finite losses, K1 once a round and
+    K9 twice a layer a local step. -> its launches."""
+    import tempfile
+
+    from repro_torch.examples import train_100m
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import pack
+
+    pack.packed_bucket_reduce.launches = kflash.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = train_100m.main(["--rounds", str(TRAIN_100M_ROUNDS), "--store", tmp,
+                               "--device", str(dev)],
+                              log=lambda msg: print(f"phase16d {msg}", flush=True))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k9 = pack.packed_bucket_reduce.launches, kflash.flash_attention.launches
+    server = res.pop("server")
+    steps = TRAIN_100M_ROUNDS * server.fed.n_clients
+    check(set(res) >= {"params_M", "rounds", "loss_first", "loss_last", "wall_min", "cos_rounds"}
+          and res["rounds"] == TRAIN_100M_ROUNDS and res["cos_rounds"] == [0]
+          and all(np.isfinite(r.loss) for r in server.history), f"phase16d summary {res}")
+    check(k1 == TRAIN_100M_ROUNDS and k9 == 2 * server.cfg.n_layers * steps,
+          f"phase16d: K1 {k1}, K9 {k9} launches in {TRAIN_100M_ROUNDS} rounds of "
+          f"{server.fed.n_clients} clients")
+    losses = " ".join(repr(r.loss) for r in server.history)
+    print(f"phase16d train_100m ({res['params_M']} M params, {server.fed.n_clients} clients, "
+          f"{TRAIN_100M_ROUNDS} rounds) in {wall:.2f} s: loss {losses}; K1 {k1}, K9 {k9} "
+          f"launches; peak_device_memory_gib="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}  [{card}]", flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return {"packed_bucket_reduce": k1, "flash_attention": k9}
+
+
+def phase16(dev, card: str) -> dict:
+    """Slice 7d on the card: 16a-16d. -> {kernel: {run: launches}}."""
+    out = phase16a(dev, card)
+    phase16b(dev, card)
+    phase16c(dev, card)
+    for k, v in phase16d(dev, card).items():
+        out[k]["train_100m"] = v
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -3509,6 +3882,12 @@ def main() -> None:
     mark("phase 15")
     families = phase15(dev, card)
 
+    # ---- phase 16: the other LM families trained ----------------------------
+    mark("phase 16")
+    families_train = phase16(dev, card)
+    trained = (f"phase 16: {FAMILY_TRAIN_ROUNDS} launcher rounds per arch at C "
+               f"{FAMILY_TRAIN_CLIENTS}, train_100m's {TRAIN_100M_ROUNDS}")
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -3525,7 +3904,8 @@ def main() -> None:
     lm = {k: dict(launches_training=lm_train[k]["launches"], training_path=lm_train[k]["main_path"],
                   main_path=lm_launches[k]["main_path"], launches_families={
                       **families[k], "main_path": f"phase 15: serve --full-size, one prefill and "
-                                                  f"{FAMILY_NEW} new tokens per arch"})
+                                                  f"{FAMILY_NEW} new tokens per arch"},
+                  launches_families_training={**families_train[k], "main_path": trained})
           for k in ("flash_attention", "ssd_chunk_scan")}
     demo = lm_train["fedavg_masked_mean"]
     kernels = [
@@ -3537,6 +3917,8 @@ def main() -> None:
         entry("packed_bucket_reduce", "bucket_reduce.cu", "pack.py:132",
               train_launches["packed_bucket_reduce"], k_stats["packed_bucket_reduce"],
               launches_lm_training=lm_train["packed_bucket_reduce"],
+              launches_families_training={**families_train["packed_bucket_reduce"],
+                                          "main_path": trained},
               launches_demo=lm_train["packed_bucket_reduce_demo"],
               launches_async={**async_launches, "main_path": f"phase 12: {ASYNC_FLUSHES} "
                               f"buffered flushes, {ASYNC_LAUNCHER_FLUSHES} through the launcher, "

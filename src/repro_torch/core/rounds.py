@@ -8,7 +8,7 @@ the same layout (``optim``). One round:
 
 1. each client that takes part trains E local steps on views of its own row
    (``packing.unpack_views``): the functional model (``yolov3.yolo_loss``,
-   or ``transformer.loss_fn`` for the dense and ssm LM families) runs over
+   or ``transformer.loss_fn`` for every LM family) runs over
    the views, autograd returns the gradient in the packed layout, and the
    optimizer updates the row and its moment rows in place. With
    ``FedConfig.microbatches = m > 1`` each step splits its batch into m
@@ -44,8 +44,7 @@ reports the same metrics. quant8 and hier move their own rows
 (``Aggregator.local_rows``); every other aggregator gets the whole buffer by
 one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
 (what XLA's SPMD does for them in the reference). The tree layout (slice 9)
-raises ``NotImplementedError``, as do the LM families other than dense and
-ssm (slice 7d).
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -118,16 +117,13 @@ def loss_for(cfg) -> Callable:
     """``(params, batch) -> (loss, metrics)`` for the config's family."""
     if cfg.family == "yolo":
         return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
-    transformer.check_trainable(cfg)
     return lambda params, batch: transformer.loss_fn(cfg, params, batch)
 
 
 def make_template(cfg) -> PyTree:
-    """The trained model's template; an LM family the port does not train
-    yet raises (``transformer.check_trainable``)."""
+    """The trained model's template: fedyolov3's or any LM family's."""
     if cfg.family == "yolo":
         return yolov3.template(cfg)
-    transformer.check_trainable(cfg)
     return transformer.template(cfg)
 
 

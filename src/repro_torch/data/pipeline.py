@@ -1,10 +1,9 @@
 """Host-side batching (port of ``repro/data/pipeline.py``): the detection
-suite, the partitioned token pool and ``fed_batches``' text and yolo
-branches.
+suite, the partitioned token pool and ``fed_batches`` for every modality.
 
 NumPy only: the same seed gives bit-identical batches to the reference's.
 The batches stay NumPy; the caller moves them to its device
-(``core.rounds.to_device``). The audio and vlm branches belong to slice 7d.
+(``core.rounds.to_device``).
 """
 from __future__ import annotations
 
@@ -148,19 +147,34 @@ def fed_batches(cfg: ArchConfig, fed: FedConfig, batch: int, seq: int, seed: int
     scenario over a labeled pool (:func:`partitioned_token_batches`); yolo
     archs: fresh scenes every local step (``"stream"``: images (C, E, b, H,
     W, 3) and three target heads of (C, E, b, ...)) or, under a scenario,
-    :func:`detection_suite`'s training batches.
+    :func:`detection_suite`'s training batches; audio: ``audio_batches``'
+    frames, labels and mask of ``seq`` frames; vlm: ``max(seq - ni, 8)``
+    text tokens a sequence beside ``ni = n_image_tokens`` image embeddings
+    (C, E, b, ni, d_model), drawn from a second ``default_rng(seed)``. A
+    partition scenario applies to text and yolo archs only.
     """
     C, E = fed.n_clients, fed.local_steps
-    if cfg.modality in ("audio", "vlm"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.modality} batches are ported in slice 7d")
     if partition_name != "stream":
         if cfg.family == "yolo":
             gen, _, _ = detection_suite(cfg, fed, batch, img_size, partition_name, seed, alpha=alpha)
             yield from gen
             return
+        if cfg.modality != "text":
+            raise ValueError(
+                f"partition scenarios only apply to text and yolo archs (got "
+                f"modality={cfg.modality!r}); use the default 'stream'")
         yield from partitioned_token_batches(cfg.vocab_size, C, E, batch, seq, partition_name,
                                              seed, alpha=alpha)
         return
+    if cfg.modality == "audio":
+        yield from synthetic.audio_batches(cfg.d_model, cfg.vocab_size, C, E, batch, seq, seed)
+        return
+    if cfg.modality == "vlm":
+        ni = cfg.n_image_tokens
+        rng = np.random.default_rng(seed)
+        for tb in synthetic.token_batches(cfg.vocab_size, C, E, batch, max(seq - ni, 8), seed):
+            imgs = rng.normal(size=(C, E, batch, ni, cfg.d_model)).astype(np.float32) * 0.1
+            yield {"tokens": tb["tokens"], "images": imgs}
     if cfg.family == "yolo":
         # per-step detection scenes: every (client, step) draws a fresh batch
         rng = np.random.default_rng(seed)

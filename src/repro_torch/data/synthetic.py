@@ -1,10 +1,10 @@
 """Synthetic data (port of ``repro/data/synthetic.py``): detection scenes
-(``scene_images``, ``boxes_to_arrays``, ``detection_scene_pool``) and
-Markov token streams (``MarkovTokens``, ``token_batches``).
+(``scene_images``, ``boxes_to_arrays``, ``detection_scene_pool``), Markov
+token streams (``MarkovTokens``, ``token_batches``) and hubert's frames and
+cluster labels (``audio_batches``).
 
 A NumPy copy: the same ``np.random.default_rng`` seed gives bit-identical
-images, boxes and tokens to the reference's. The audio generator belongs to
-slice 7d.
+images, boxes, tokens and frames to the reference's.
 """
 from __future__ import annotations
 
@@ -150,3 +150,18 @@ def token_batches(vocab: int, n_clients: int, local_steps: int, batch: int, seq:
                 [np.stack([s.sample(rng, batch, seq) for _ in range(local_steps)]) for s in sources]
             )
         }
+
+
+def audio_batches(d_model: int, vocab: int, n_clients: int, local_steps: int, batch: int,
+                  seq: int, seed: int = 0):
+    """Yields hubert's batches: {"frames" (C, E, b, S, d_model) f32, "labels"
+    (C, E, b, S) int32 cluster ids, "mask" (C, E, b, S) bool, about 30% of
+    the frames}: each frame is its cluster's prototype plus noise."""
+    rng = np.random.default_rng(seed)
+    proto = rng.normal(size=(vocab, d_model)).astype(np.float32)
+    while True:
+        labels = rng.integers(0, vocab, size=(n_clients, local_steps, batch, seq))
+        frames = proto[labels] + 0.5 * rng.normal(
+            size=(n_clients, local_steps, batch, seq, d_model)).astype(np.float32)
+        mask = rng.random((n_clients, local_steps, batch, seq)) < 0.3
+        yield {"frames": frames.astype(np.float32), "labels": labels.astype(np.int32), "mask": mask}

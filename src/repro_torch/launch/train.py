@@ -38,13 +38,15 @@ secure, K6 + the base's kernel for hier), COS checkpoints every 5 rounds with
 to a ``ModelSlot`` and 4 synthetic frames are decoded through the serving
 plane's detection program: train -> evaluate -> serve.
 
-The LM workload (``--task lm``, or ``auto`` with an LM ``--arch``: the dense
-qwen3-1.7b and the ssm mamba2-1.3b) trains on ``fed_batches``' token streams
-(``--partition stream`` gives each client its own Markov drift, a scenario
-splits a labeled pool) at ``--batch`` sequences of ``--seq`` tokens per
-local step, with flash attention (K9) and the SSD chunk scan (K10) in the
-forward on the card and their plain versions' gradients, and prints the
-reference's summary JSON. ``--device`` defaults to ``cuda`` and never falls
+The LM workload (``--task lm``, or ``auto`` with an LM ``--arch``: any of
+the registry's ten, dense, MoE, gemma3, ssm, the zamba2 hybrid, llava and
+hubert) trains on ``fed_batches``' streams (``--partition stream`` gives
+each client its own Markov drift, a scenario splits a labeled pool of a
+text arch; hubert trains on frames and masked cluster labels, llava on
+image embeddings before its tokens) at ``--batch`` sequences of ``--seq``
+positions per local step, with flash attention (K9) and the SSD chunk scan
+(K10) in the forward on the card and their plain versions' gradients, and
+prints the reference's summary JSON. ``--device`` defaults to ``cuda`` and never falls
 back to the CPU.
 
 As the reference's launcher does, the server runs on a 1 x 1 client mesh
@@ -90,7 +92,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.checkpoint import ObjectStore
-from repro_torch.configs import get_arch
+from repro_torch.configs import REGISTRY, get_arch
 from repro_torch.core import aggregators, monitor, serving
 from repro_torch.core.rounds import FedConfig
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
@@ -474,19 +476,25 @@ def restore(args) -> dict[str, Any]:
     }
 
 
-def train_lm(args, log=lambda m: print(m, flush=True)) -> TrainRun:
-    """Federated LM training for parsed ``args``: qwen3-1.7b (dense) or
-    mamba2-1.3b (ssm), reduced unless ``--full-size``, with the kernel
-    branches on (``attention_impl`` / ``ssm_impl`` = ``"kernel"``)."""
+def train_lm(args, log=lambda m: print(m, flush=True), cfg=None) -> TrainRun:
+    """Federated LM training for parsed ``args``: any LM arch of the registry
+    (dense, MoE, gemma3's local/global pattern, ssm, the zamba2 hybrid,
+    llava's image tokens, hubert's masked frames), reduced unless
+    ``--full-size``, with the kernel branches on (``attention_impl`` /
+    ``ssm_impl`` = ``"kernel"``). ``cfg`` trains that config of ``--arch``
+    in place of the registry's (``chip_smoke.py`` passes published widths
+    cut in depth)."""
     _check_ported(args)
     if args.arch is None:
-        raise ValueError("--task lm needs --arch (qwen3-1.7b or mamba2-1.3b)")
+        lms = sorted(n for n, c in REGISTRY.items() if c.family != "yolo")
+        raise ValueError(f"--task lm needs --arch, one of {lms}")
     dev = D.resolve(args.device)
-    cfg = get_arch(args.arch)
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if not args.full_size:
+            cfg = cfg.reduced()
     if cfg.family == "yolo":
         raise ValueError(f"--task lm needs an LM arch (got {args.arch})")
-    if not args.full_size:
-        cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attention_impl="kernel", ssm_impl="kernel")
     fed = fed_config(args, cfg)
     server = make_server(args, cfg, fed, dev, args.arch)

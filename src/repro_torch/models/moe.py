@@ -85,7 +85,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg):
     capacity and the one-hot dispatch tensors stay bounded whatever the
     sequence length; a sequence the group size does not divide is one
     group. The batch axis stays apart from the group axis, as in the
-    reference."""
+    reference. The aux loss is ``E`` times the mean over all ``B * ng``
+    groups, which equals the reference's mean over rows of each row's
+    mean, since every row has the same ``ng`` groups."""
     if cfg.moe_impl == "sort":
         return moe_block_sort(p, x, cfg)
     B, S, D = x.shape

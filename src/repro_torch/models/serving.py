@@ -29,9 +29,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
-from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import rms_norm, swiglu
-from repro_torch.models.transformer import (_dtype, embed_inputs, gemma_pattern, index,
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import (_dtype, embed_inputs, ffn_block, gemma_pattern, index,
                                             is_stacked_dense, layer_window, logits_fn)
 
 PyTree = Any
@@ -71,17 +70,10 @@ def cache_spec(cfg: ArchConfig, batch: int, max_len: int, device=None) -> PyTree
     return _caches(cfg, batch, max_len, min(cfg.window, max_len), device, _dtype(cfg))
 
 
-def _ffn(cfg, p, g):
-    if cfg.family == "moe":
-        return moe_mod.moe_block(p["moe"], g, cfg)[0]
-    return swiglu(g, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
-
-
 def _dense_decode_block(cfg, p, h, layer_cache, pos: int, window: int):
     a, _ = attn.decode_attention(p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), layer_cache,
                                  cfg, pos, window=window)
-    h = h + a
-    return h + _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps))
+    return ffn_block(cfg, p, h + a)[0]
 
 
 def _ssm_decode_block(cfg, p, h, ssm, conv):
@@ -140,8 +132,7 @@ def _dense_block_kv(cfg, p, h, window: int, kv: dict):
                                        window=window, return_kv=True)
     kv["k"][:, :kc.shape[1]] = kc.to(kv["k"].dtype)
     kv["v"][:, :vc.shape[1]] = vc.to(kv["v"].dtype)
-    h = h + a
-    return h + _ffn(cfg, p, rms_norm(h, p["norm2"], cfg.norm_eps))
+    return ffn_block(cfg, p, h + a)[0]
 
 
 def _ssm_block_state(cfg, p, h, ssm, conv):

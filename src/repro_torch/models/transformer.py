@@ -9,19 +9,25 @@ FFN, ``models/moe.py``), ``ssm`` (Mamba2 SSD blocks) and ``hybrid``
 (zamba2: Mamba2 groups with one shared attention + MLP block after each
 group). The layer stacks stay stacked ((n_layers, ...) or (n_groups,
 period, ...) leaves, the reference's layout), and the reference's
-``lax.scan`` over layers is a Python loop. Every family has its template
-and its serving path (``models/serving.py``); the training trunk and loss
-run the dense and ssm text families, and raise ``NotImplementedError`` for
-the others (:func:`check_trainable`, slice 7d). The reference's
-``models/shard_ctx.py::constrain`` is a sharding hint, the identity on one
-card, and is not ported.
+``lax.scan`` over layers is a Python loop. A gemma3 cut to fewer layers
+than its period has no ``groups`` stack, only its tail of windowed layers
+(the reference's template would hold zero-size group leaves, which neither
+package's init or packing takes). Every family has its template,
+its training trunk and loss (:func:`trunk`, :func:`loss_fn`: next-token
+CE, hubert's masked-frame CE, llava's CE over the text after its image
+tokens, plus ``router_aux_weight`` times MoE's load-balance loss summed
+over the layers) and its serving path (``models/serving.py``). The
+reference's ``models/shard_ctx.py::constrain`` is a sharding hint, the
+identity on one card, and is not ported.
 
 Under grad, as the reference's ``jax.checkpoint`` does on every scanned
-block and on the CE body, each layer and each CE chunk runs under
-``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: the
-backward recomputes its activations, so a layer keeps only its (B, S, D)
-input. The recompute runs the layer's forward again, K9 and K10 included:
-a local step launches each kernel twice per layer.
+unit and on the CE body, each unit and each CE chunk runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: a layer
+of a stack, a whole period group of gemma3, a whole Mamba2 group of zamba2
+with the shared block after it. The backward recomputes the unit's
+activations, so a unit keeps only its (B, S, D) input. The recompute runs
+the unit's forward again, K9 and K10 included: a local step launches each
+kernel twice per layer (or per application of zamba2's shared block).
 """
 from __future__ import annotations
 
@@ -40,21 +46,11 @@ from repro_torch.models.params import ParamInfo, flatten_with_paths, map_tree, u
 PyTree = Any
 
 VOCAB_PAD = 16  # pad vocab to the model-axis width; padded logits masked
-LATER = "slice 7d"
 
 
 def is_stacked_dense(cfg) -> bool:
     """One (n_layers, ...) stack of attention layers (no period groups)."""
     return cfg.family in ("dense", "vlm", "audio", "moe") and not cfg.local_global_period
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for the LM configurations the port does not train yet."""
-    if cfg.family not in ("dense", "ssm") or cfg.local_global_period or cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: training family {cfg.family!r} (modality {cfg.modality!r}, "
-            f"local_global_period {cfg.local_global_period}) is ported in {LATER}; the port "
-            f"trains dense and ssm text models and serves every LM family")
 
 
 def _mlp_template(cfg, pa, ns):
@@ -116,8 +112,9 @@ def template(cfg: ArchConfig) -> PyTree:
         t["layers"] = _dense_layer_template(cfg, ("layer",), (cfg.n_layers,))
     elif cfg.local_global_period:  # gemma3
         ng, nt = gemma_pattern(cfg)
-        t["groups"] = _dense_layer_template(cfg, ("group", "layer"),
-                                            (ng, cfg.local_global_period))
+        if ng:  # fewer layers than a period: the tail alone (see the docstring)
+            t["groups"] = _dense_layer_template(cfg, ("group", "layer"),
+                                                (ng, cfg.local_global_period))
         if nt:
             t["tail"] = _dense_layer_template(cfg, ("layer",), (nt,))
     elif cfg.family == "ssm":
@@ -146,11 +143,22 @@ def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def ffn_block(cfg, p, x):
+    """A block's second half, ``x + FFN(norm2(x))`` -> (x, aux): GShard's
+    top-k experts with their load-balance loss under MoE, else SwiGLU and
+    an aux of 0.0 (a Python float: serving discards it)."""
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_block(p["moe"], h, cfg)
+        return x + y, aux
+    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), 0.0
+
+
 def dense_block(cfg, p, x, window: int):
+    """Pre-norm attention, then :func:`ffn_block` -> (x, aux)."""
     x = x + attn.attention_block(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
                                  window=window)
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return ffn_block(cfg, p, x)
 
 
 def ssm_block(cfg, p, x):
@@ -168,15 +176,17 @@ def embed_inputs(cfg, params, batch) -> torch.Tensor:
     return params["embed"][batch["tokens"]]
 
 
-def unstack_layers(params: PyTree) -> list[PyTree]:
-    """Every layer's parameters, views into the stacked leaves through
-    ``unbind``: its backward stacks the layers' gradients once, where
-    indexing each layer (:func:`index`) would zero-fill a full-size stacked
-    gradient per layer and leaf."""
-    leaves = list(flatten_with_paths(params["layers"]))
+def unstack(tree: PyTree, levels: int = 1) -> list:
+    """The entries of a stacked subtree, views into its leaves through
+    ``unbind``: a list of trees, or for ``levels=2`` (gemma3's and zamba2's
+    (n_groups, period, ...) leaves) a list of lists. Its backward stacks the
+    entries' gradients once, where indexing each entry (:func:`index`) would
+    zero-fill a full-size stacked gradient per entry and leaf."""
+    leaves = list(flatten_with_paths(tree))
     split = [w.unbind(0) for _, w in leaves]
-    return [unflatten(params["layers"], {path: split[j][i] for j, (path, _) in enumerate(leaves)})
-            for i in range(len(split[0]))]
+    out = [unflatten(tree, {path: split[j][i] for j, (path, _) in enumerate(leaves)})
+           for i in range(len(split[0]))]
+    return out if levels == 1 else [unstack(t, levels - 1) for t in out]
 
 
 def remat(fn, *args):
@@ -189,15 +199,43 @@ def remat(fn, *args):
 
 def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
     """Hidden states (B, S, D) -> (B, S, D) after all layers and the final
-    norm. Returns (hidden, aux_loss); aux is 0 without MoE. The dense and
-    ssm text families only (:func:`check_trainable`)."""
-    check_trainable(cfg)
-    for p in unstack_layers(params):
-        if cfg.family == "dense":
-            x = remat(lambda h, q: dense_block(cfg, q, h, cfg.window), x, p)
-        else:
+    norm. Returns (hidden, aux): MoE's load-balance loss summed over the
+    layers in their order (0 for the other families). Each unit is
+    checkpointed under grad (:func:`remat`); the stacks are unbound outside
+    the checkpoints (:func:`unstack`)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(h, a, q, window):
+        h, b = dense_block(cfg, q, h, window)
+        return h, a + b
+
+    def gemma_group(h, a, layers):
+        for i, q in enumerate(layers):
+            h, a = layer(h, a, q, layer_window(cfg, i))
+        return h, a
+
+    def hybrid_group(h, layers, shared):
+        for q in layers:
+            h = ssm_block(cfg, q, h)
+        return dense_block(cfg, shared, h, 0)[0]
+
+    if is_stacked_dense(cfg):
+        for p in unstack(params["layers"]):
+            x, aux = remat(layer, x, aux, p, cfg.window)
+    elif cfg.local_global_period:  # gemma3: period groups, then the tail
+        for g in unstack(params["groups"], 2) if "groups" in params else ():
+            x, aux = remat(gemma_group, x, aux, g)
+        for p in unstack(params["tail"]) if "tail" in params else ():
+            x, aux = remat(layer, x, aux, p, cfg.window)
+    elif cfg.family == "ssm":
+        for p in unstack(params["layers"]):
             x = remat(lambda h, q: ssm_block(cfg, q, h), x, p)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), torch.zeros((), device=x.device)
+    elif cfg.family == "hybrid":  # each Mamba2 group, then the one shared block
+        for g in unstack(params["mamba_groups"], 2):
+            x = remat(hybrid_group, x, g, params["shared"])
+    else:
+        raise ValueError(f"unsupported family {cfg.family}")
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def logits_fn(cfg, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -254,11 +292,19 @@ def _next_token_ce(cfg, params, hidden: torch.Tensor, tokens: torch.Tensor) -> t
 
 
 def loss_fn(cfg: ArchConfig, params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
-    """The text training objective: next-token CE (+ the router's aux loss,
-    0 without MoE). batch {"tokens" (B, S) int} -> (loss, {"ce", "aux"}).
-    The dense and ssm text families only (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    """The training objective per modality -> (loss, {"ce", "aux"}), loss =
+    ce + ``router_aux_weight`` * aux. Text: next-token CE over ``tokens``
+    (B, S); audio (hubert's masked cluster prediction): CE over ``labels``
+    (B, S) at the frames where ``mask`` (B, S) is set, from ``frames`` (B,
+    S, D); vlm: next-token CE over the text positions, after the
+    ``images`` (B, n_img, D)."""
     x = embed_inputs(cfg, params, batch)
     hidden, aux = trunk(cfg, params, x)
-    ce = _next_token_ce(cfg, params, hidden, batch["tokens"])
+    if cfg.modality == "audio":
+        ce = chunked_ce(cfg, params, hidden, batch["labels"], batch["mask"])
+    elif cfg.modality == "vlm":
+        n_img = batch["images"].shape[1]
+        ce = _next_token_ce(cfg, params, hidden[:, n_img:], batch["tokens"])
+    else:
+        ce = _next_token_ce(cfg, params, hidden, batch["tokens"])
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}

@@ -109,7 +109,9 @@ def test_layers_match_reference():
 
 def test_template_matches_reference_and_later_families_raise():
     """Every family's template builds and matches the reference's (slice
-    7c); training the families past dense and ssm raises, naming slice 7d."""
+    7c); the families past dense and ssm, which raised until slice 7d, now
+    run the training trunk to finite hidden states of the input's shape
+    (tests/test_torch_lm_families_train.py holds them to the reference)."""
     later = ("zamba2-2.7b", "granite-moe-1b-a400m", "gemma3-27b", "llava-next-34b", "hubert-xlarge")
     for arch in (*ARCHS, *later):
         j, t = cfgs(arch)
@@ -120,8 +122,15 @@ def test_template_matches_reference_and_later_families_raise():
             key = "/".join(p.key for p in path)
             assert flat[key].shape == info.shape and flat[key].init == info.init, key
     for arch in later:
-        with pytest.raises(NotImplementedError, match="slice 7d"):
-            T.trunk(get_arch(arch).reduced(), {}, None)
+        t = get_arch(arch).reduced()
+        p = convert.lm_params_from_reference(jax.tree.map(
+            np.asarray, jparams.init_params(jT.template(cfgs(arch)[0]), jax.random.key(0),
+                                            jnp.float32)))
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 16, t.d_model))
+                             .astype(np.float32))
+        hidden, aux = T.trunk(t, p, x)
+        assert hidden.shape == x.shape and bool(torch.isfinite(hidden).all())
+        assert (float(aux) > 0) == (t.family == "moe")
 
 
 @pytest.mark.parametrize("S_len", [128, 37])

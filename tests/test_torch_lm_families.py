@@ -145,16 +145,6 @@ def test_lm_params_round_trip_is_bit_exact(case, arch, kw):
         np.testing.assert_array_equal(np.asarray(a).view(np.int32), b.view(np.int32), err_msg=str(path))
 
 
-def test_training_the_new_families_raises_naming_slice_7d():
-    for arch in ("granite-moe-1b-a400m", "gemma3-27b", "zamba2-2.7b", "llava-next-34b",
-                 "hubert-xlarge"):
-        t = configs.get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError, match="slice 7d"):
-            T.trunk(t, None, None)
-        with pytest.raises(NotImplementedError, match="slice 7d"):
-            T.loss_fn(t, None, {})
-
-
 # ----------------------------- prefill, decode, generate ----------------------
 
 @pytest.mark.parametrize("case,arch,kw", FAMILIES, ids=[f[0] for f in FAMILIES])

@@ -113,18 +113,20 @@ def test_token_batches_are_bit_identical():
         assert x.shape == (3, 2, 2, 32) and np.array_equal(x, y)
 
 
-def test_fed_batches_of_later_modalities_raise():
-    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), modality="audio")
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        next(pipeline.fed_batches(cfg, rounds.FedConfig(n_clients=2), batch=1, seq=8))
-
-
 # ------------------------------ pack spec ------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+# N_total of every LM arch at full size (the port's count_params of its template)
+FULL_N = {"granite-3-8b": 8_170_901_504, "qwen3-1.7b": 1_720_574_976,
+          "hubert-xlarge": 1_259_726_080, "grok-1-314b": 315_684_034_560,
+          "granite-moe-1b-a400m": 1_334_641_664, "gemma3-27b": 27_008_335_616,
+          "llava-next-34b": 34_862_349_312, "minitron-8b": 9_882_046_464,
+          "mamba2-1.3b": 1_343_548_416, "zamba2-2.7b": 2_340_466_848}
+
+
+@pytest.mark.parametrize("arch", list(FULL_N))
 def test_full_size_pack_spec_matches_reference(arch):
     """The leaf order (sorted keys) and the Eq. 6 buckets K1 reduces over, at
-    full size: both specs read templates only."""
+    full size, for every LM arch: both specs read templates only."""
     jcfg, tcfg = jget_arch(arch), get_arch(arch)
     js = jpacking.build_pack_spec(jcfg, jT.template(jcfg))
     ts = packing.build_pack_spec(tcfg, T.template(tcfg))
@@ -133,14 +135,21 @@ def test_full_size_pack_spec_matches_reference(arch):
     got = [(s.name, s.shape, s.offset, s.size, s.bucket_off, s.n_buckets) for s in ts.slots]
     assert got == want
     assert ts.n_total == js.n_total and ts.n_buckets == js.n_buckets == tcfg.n_layers + 1
-    # one bucket per layer for every layer stack, the misc bucket for the rest
+    # one bucket per layer of every layer stack (gemma3's tail after its
+    # groups), the misc bucket for the rest (zamba2's shared block included)
+    grouped = tcfg.n_layers // (tcfg.local_global_period or tcfg.shared_attn_period or 1)
+    grouped *= tcfg.local_global_period or tcfg.shared_attn_period or 1
     for s in ts.slots:
-        if s.name.startswith("layers/"):
+        top = s.name.split("/")[0]
+        if top == "layers":
             assert (s.bucket_off, s.n_buckets) == (0, tcfg.n_layers)
+        elif top in ("groups", "mamba_groups"):
+            assert (s.bucket_off, s.n_buckets) == (0, grouped)
+        elif top == "tail":
+            assert (s.bucket_off, s.n_buckets) == (grouped, tcfg.n_layers - grouped)
         else:
             assert (s.bucket_off, s.n_buckets) == (tcfg.n_layers, 1)
-    n = {"qwen3-1.7b": 1_720_574_976, "mamba2-1.3b": 1_343_548_416}[arch]
-    assert ts.n_total == n
+    assert ts.n_total == FULL_N[arch]
     assert compression.compression_ratio(tcfg, 1) == 1 / (tcfg.n_layers + 1)
 
 

@@ -341,11 +341,10 @@ def test_unported_configurations_raise():
     # (tests/test_torch_participation.py); a mesh that shards the flat dim is not
     for kw in (dict(aggregation="fedsgd"), dict(participation="compact")):
         assert rounds.make_aggregator(TCFG, _fed("torch", **kw)).ctx.fed == _fed("torch", **kw)
-    # microbatches are ported (tests/test_torch_lm_train.py); training the LM
-    # families beyond dense and ssm is not (they serve since slice 7c)
-    with pytest.raises(NotImplementedError, match="slice 7d"):
-        rounds.make_aggregator(dataclasses.replace(get_arch("qwen3-1.7b").reduced(), family="moe"),
-                               _fed("torch"))
+    # microbatches are ported (tests/test_torch_lm_train.py), and so is
+    # training every LM family (tests/test_torch_lm_families_train.py)
+    moe_cfg = get_arch("granite-moe-1b-a400m").reduced()
+    assert rounds.make_aggregator(moe_cfg, _fed("torch")).ctx.cfg == moe_cfg
     with pytest.raises(ValueError, match="microbatches"):
         rounds.make_aggregator(TCFG, _fed("torch", microbatches=0))
     with pytest.raises(ValueError, match="the port has"):

@@ -30,6 +30,7 @@ same id, and backpressure on a bounded queue.
 """
 import dataclasses
 import json
+import socket
 import threading
 import time
 from types import SimpleNamespace
@@ -133,6 +134,95 @@ def _spawn_when(cond, meta, path, client_ids, extra=()):
 def _landed(client):
     return lambda server: any(e.kind == "land" and e.client == client
                               for e in list(server.schedule.events))
+
+
+def _dispatched(client):
+    return lambda server: any(e.kind == "dispatch" and e.client == client
+                              for e in list(server.schedule.events))
+
+
+def _flushed(n):
+    return lambda server: sum(e.kind == "land" and e.flush >= 0
+                              for e in list(server.schedule.events)) >= n
+
+
+class _HeldUploads:
+    """A TCP relay in front of the server for one worker process (its
+    ``--port`` flag points here) that holds the worker's UPDATE frames until
+    ``release(server)`` holds, then sends them in order; every other frame
+    passes at once, heartbeats included. A straggler made this way is stale
+    by the landing order, not by a wall-clock delay racing the others.
+    :meth:`hook` is ``wire_run``'s hook: it names the server to relay to."""
+
+    def __init__(self, release):
+        self.release, self.server = release, None
+        self.ready = threading.Event()
+        self.listener = socket.create_server(("127.0.0.1", 0))
+        self.port = self.listener.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def hook(self, server, workers):
+        self.server = server
+        self.ready.set()
+
+    def close(self):
+        self.listener.close()
+
+    def _accept(self):
+        while True:
+            try:
+                down, _ = self.listener.accept()
+            except OSError:
+                return
+            self.ready.wait(DEADLINE_S)
+            try:
+                up = socket.create_connection((self.server.host, self.server.port))
+            except OSError:  # the server already stopped: the worker's retry ends it
+                down.close()
+                continue
+            threading.Thread(target=self._pipe, args=(up, down), daemon=True).start()
+            threading.Thread(target=self._uploads, args=(down, up), daemon=True).start()
+
+    @staticmethod
+    def _pipe(src, dst):
+        try:
+            while data := src.recv(1 << 16):
+                dst.sendall(data)
+        except OSError:
+            pass
+        finally:
+            for sock in (src, dst):
+                sock.close()
+
+    def _uploads(self, down, up):
+        lock, held = threading.Lock(), []
+
+        def send_held():
+            deadline = time.monotonic() + DEADLINE_S
+            while not self.release(self.server) and time.monotonic() < deadline:
+                time.sleep(0.02)
+            with lock:
+                for frame in held:
+                    up.sendall(frame)
+                held.clear()
+
+        parser = wire.FrameParser()
+        try:
+            while data := down.recv(1 << 16):
+                for ftype, payload in parser.feed(data):
+                    frame = wire.encode_frame(ftype, payload)
+                    with lock:
+                        if ftype == wire.UPDATE and (held or not self.release(self.server)):
+                            held.append(frame)
+                            if len(held) == 1:
+                                threading.Thread(target=send_held, daemon=True).start()
+                        else:
+                            up.sendall(frame)
+        except OSError:
+            pass
+        finally:
+            for sock in (down, up):
+                sock.close()
 
 
 # ------------------------------ units ---------------------------------------
@@ -327,16 +417,31 @@ def test_bounded_queue_applies_backpressure():
 @pytest.mark.parametrize("wire_codec", ["dense", "quant8", "quant4"])
 def test_wire_run_replays_deterministically(wire_codec, tmp_path):
     """C = 4 workers over TCP, 5 flushes, a straggler dropped at the
-    staleness gate. The recorded schedule replays through the port's
-    engine to the run's global (bitwise dense, 1e-5 otherwise) and, from
-    the port's initial state, through the reference's engine (module
-    docstring's bounds)."""
+    staleness gate by the landing order (:class:`_HeldUploads`). The
+    recorded schedule replays through the port's engine to the run's
+    global (bitwise dense, 1e-5 otherwise) and, from the port's initial
+    state, through the reference's engine (module docstring's bounds)."""
     meta = _meta(n_clients=4, buffer_size=2, max_staleness=1, wire_codec=wire_codec,
                  quant_block=512)
-    res = _wire(meta, 5, worker_groups=[
-        {"client_ids": [0, 1, 2], "extra": ["--max-updates", "3"]},
-        {"client_ids": [3], "extra": ["--fault-plan", "delay@1:update:3.0", "--max-updates", "2"]},
-    ])
+    # the straggler (client 3) says HELLO first, so it trains on version 0;
+    # clients 0-2 start once that dispatch is recorded, and the straggler's
+    # first upload is held until their landings have made 2 flushes: it
+    # lands 2 versions stale and is dropped. 5 flushes take 10 fresh
+    # landings; the budgets allow 4 more uploads, since the three threads of
+    # clients 0-2 may drop a landing of their own
+    held = _HeldUploads(_flushed(2))
+    spawn = _spawn_when(_dispatched(3), meta, tmp_path / "meta.json", [0, 1, 2],
+                        ["--max-updates", "4"])
+
+    def hooks(server, workers):
+        held.hook(server, workers)
+        spawn(server, workers)
+
+    try:
+        res = _wire(meta, 5, hooks=hooks, worker_groups=[
+            {"client_ids": [3], "extra": ["--port", str(held.port), "--max-updates", "3"]}])
+    finally:
+        held.close()
     assert res.stats.flushes == 5 and len(res.history) == 5
     assert res.dropped_total >= 1 and res.schedule.n_dropped == res.dropped_total
     assert res.stats.protocol_errors == 0
