@@ -293,6 +293,7 @@ The line before the last is the kernel summary; the last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -3655,6 +3656,197 @@ def phase16(dev, card: str) -> dict:
     return out
 
 
+# phase 17: the launch tooling. 17b dry-runs these plans on the meta device;
+# 17c holds the 1 x 1 plan of phase 10d's qwen3-1.7b round against the card
+PLAN_ROWS = [("qwen3-1.7b", "train_4k", False), ("grok-1-314b", "decode_32k", True),
+             ("zamba2-2.7b", "long_500k", False)]
+PLAN_STATE_ARCHS = ["grok-1-314b", "gemma3-27b"]
+PLAN_STATE_MESHES = [{"data": 1, "model": 1}, {"data": 1, "model": 4}]
+PLAN_FLOP_RTOL, PLAN_PEAK_RTOL = 1e-3, 0.10
+PLAN_TIMED_ROUNDS = 2
+
+
+def phase17a(card: str) -> None:
+    """The launcher's ``--print-plan`` for every arch of the registry."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    for arch in REGISTRY:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train.print_plan(arch)
+        lines = buf.getvalue().splitlines()
+        check(len(lines) == 8 and lines[0] == f"== {arch}--train_4k--singlepod"
+              and lines[4] == f"== {arch}--train_4k--multipod", f"phase17a {arch}: {lines}")
+        for line in lines:
+            print(f"phase17a {line}", flush=True)
+    print(f"phase17a --print-plan for {len(REGISTRY)} archs in {time.perf_counter() - t0:.2f} s  "
+          f"[{card}]", flush=True)
+
+
+def phase17b(card: str) -> None:
+    """``PLAN_ROWS`` through the dry-run on the meta device (per-device state
+    and peak, FLOPs, bytes, collective bytes, the H100 roofline's terms),
+    and the round state of the two largest train plans on small meshes."""
+    from repro_torch.launch import dryrun, specs
+
+    for arch, shape, multi in PLAN_ROWS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, multi)
+        secs = time.perf_counter() - t0
+        mem, oc, rl = rec["memory"], rec["op_costs"], rec["roofline"]
+        check(oc["flops_per_device"] > 0 and oc["traffic_bytes_per_device"] > 0
+              and mem["total_per_device"] >= mem["state_per_device"] > 0,
+              f"phase17b {rec['name']}: {mem} {oc['flops_per_device']}")
+        print(f"phase17b {rec['name']} ({rec['mesh']}, {rec['kind']}, one replica of batch "
+              f"{oc['replica_batch']} traced on meta in {rec['trace_s']} s): state "
+              f"{mem['state_per_device'] / 2 ** 30:.3f} GiB and peak "
+              f"{mem['total_per_device'] / 2 ** 30:.3f} GiB per device, "
+              f"{oc['flops_per_device']:.4e} FLOP and {oc['traffic_bytes_per_device']:.4e} B per "
+              f"device, collectives {json.dumps(oc['collective_bytes'])} B (cross-node "
+              f"{json.dumps(oc['cross_node_bytes'])}); roofline on H100 constants: compute "
+              f"{rl['compute_s']:.4e} s, memory {rl['memory_s']:.4e} s, collective "
+              f"{rl['collective_s']:.4e} s, cross-node {rl['cross_node_s']:.4e} s, bound by "
+              f"{rl['dominant']}; {secs:.2f} s  [{card}]", flush=True)
+    for arch in PLAN_STATE_ARCHS:
+        plan = specs.make_plan(arch, "train_4k", False)
+        cells = []
+        for sizes in PLAN_STATE_MESHES:
+            for dt in (torch.float32, torch.bfloat16):
+                got = dryrun.state_bytes(plan, sizes, dt)
+                cells.append(f"({sizes['data']}, {sizes['model']}) {str(dt)[6:]} params "
+                             f"{got / 1e9:.2f} GB ({'fits' if got <= dryrun.CARD_BYTES else 'over'})")
+        need = dryrun.cards_for_state(arch)
+        print(f"phase17b {arch} train_4k ({plan.kind}, adamw) round state per device against "
+              f"{dryrun.CARD_BYTES / 1e9:.0f} GB: {'; '.join(cells)}; f32 state fits from "
+              f"{need['cards']} cards ({need['mesh']}, {need['state_per_device'] / 1e9:.2f} GB "
+              f"each)  [{card}]", flush=True)
+
+
+def phase17c(dev, card: str) -> None:
+    """The 1 x 1 plan of phase 10d's qwen3-1.7b round (full width and depth,
+    C 2, 1 x 1024, eq6, adamw, f32) traced on meta, then one round on the
+    card under the same counter: FLOPs within ``PLAN_FLOP_RTOL``, the
+    predicted peak within ``PLAN_PEAK_RTOL`` of the measured, K9 and K1 as in
+    10d; the measured round against the largest roofline term."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import packing
+    from repro_torch.core import rounds as R
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import pack
+    from repro_torch.launch import op_analysis, roofline, specs, train
+    from repro_torch.models.params import DEFAULT_RULES
+    from repro_torch.optim import adamw
+
+    arch = "qwen3-1.7b"
+    args = train.build_parser().parse_args([
+        "--task", "lm", "--arch", arch, "--full-size", "--clients", str(LM_TRAIN_CLIENTS),
+        "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--device", str(dev)])
+    cfg = dataclasses.replace(get_arch(arch), attention_impl="kernel", ssm_impl="kernel")
+    fed = train.fed_config(args, cfg)  # the launcher's: eq6 on K1, as in 10d
+    shape = ShapeConfig(f"train_{LM_TRAIN_SEQ}", LM_TRAIN_SEQ,
+                        LM_TRAIN_CLIENTS * LM_TRAIN_BATCH, "train")
+    plan = specs.LoweringPlan(cfg, shape, False, "train", fed, dict(DEFAULT_RULES), (),
+                              fed.aggregation)
+    one = {"data": 1, "model": 1}
+    t0 = time.perf_counter()
+    pred = op_analysis.trace_plan(plan, one, dtype=torch.float32)
+    t_trace = time.perf_counter() - t0
+    # a later round finds K1's (N,) bucket ids cached by the first: the same
+    # trace with them live from the start
+    spec = R.make_aggregator(cfg, fed).ctx.spec
+    warm = op_analysis.count(specs.step_fn(plan), *specs.input_specs(plan, dtype=torch.float32)[0],
+                             live=(packing.bucket_ids_on(spec, torch.device("meta")),))[1]
+    rl = roofline.terms(dict(pred.flops), pred.traffic, {}, 1, cfg, shape,
+                        other_ops=pred.other_ops)
+    bound_s = max(rl.compute_s, rl.memory_s)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt = adamw(args.lr)
+    state = R.make_state(cfg, fed, opt, R.seed_generator(cfg, 0, dev), device=dev)
+    batch = R.to_device(next(fed_batches(cfg, fed, batch=args.batch, seq=args.seq, seed=1)), dev)
+    weights = R.uniform_weights(fed.n_clients).to(dev)
+    step = specs.step_fn(plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pack.packed_bucket_reduce.launches = kflash.flash_attention.launches = 0
+    t1 = time.perf_counter()
+    (state, metrics), got = op_analysis.count(step, state, batch, weights)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t1
+    k1, k9 = pack.packed_bucket_reduce.launches, kflash.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(PLAN_TIMED_ROUNDS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, weights)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak_warm = torch.cuda.max_memory_allocated() - base
+    want_k9 = 2 * cfg.n_layers * fed.n_clients * fed.local_steps
+    check(np.isfinite(loss) and np.isfinite(float(metrics["loss"])), f"phase17c loss {loss}")
+    check(k9 == want_k9 and k1 == 1 and got.kernels["flash_attention"]["launches"] == k9
+          and pred.kernels["flash_attention"]["launches"] == k9
+          and pred.kernels["packed_bucket_reduce"]["launches"] == 1,
+          f"phase17c launches K9 {k9} K1 {k1} (want {want_k9}, 1); counted {got.kernels}, "
+          f"traced {pred.kernels}")
+    flop_err = abs(got.total_flops - pred.total_flops) / pred.total_flops
+    peak_err = abs(pred.peak_bytes - peak) / peak
+    warm_err = abs(warm.peak_bytes - peak_warm) / peak_warm
+    check(warm.total_flops == pred.total_flops, f"phase17c: the warm trace counts "
+                                                f"{warm.total_flops:.6e} FLOPs, the first "
+                                                f"{pred.total_flops:.6e}")
+    check(flop_err <= PLAN_FLOP_RTOL, f"phase17c FLOPs: card {got.total_flops:.6e}, meta "
+                                      f"{pred.total_flops:.6e} ({flop_err:.2e} > {PLAN_FLOP_RTOL})")
+    check(peak_err <= PLAN_PEAK_RTOL, f"phase17c peak: predicted {pred.peak_bytes / 2 ** 30:.3f} "
+                                      f"GiB, measured {peak / 2 ** 30:.3f} GiB ({peak_err:.3f} > "
+                                      f"{PLAN_PEAK_RTOL})")
+    check(warm_err <= PLAN_PEAK_RTOL, f"phase17c later rounds' peak: predicted "
+                                      f"{warm.peak_bytes / 2 ** 30:.3f} GiB, measured "
+                                      f"{peak_warm / 2 ** 30:.3f} GiB ({warm_err:.3f} > "
+                                      f"{PLAN_PEAK_RTOL})")
+    round_ms = min(ms)
+    print(f"phase17c {arch} 1 x 1 plan (full width and depth, C {fed.n_clients}, "
+          f"{args.batch} x {args.seq}, eq6 top-{fed.topn} on K1, adamw, f32): traced on meta in "
+          f"{t_trace:.2f} s ({pred.ops} ops), counted on the card in {counted_s:.2f} s; FLOPs "
+          f"card {got.total_flops:.6e} meta {pred.total_flops:.6e} (rel {flop_err:.2e}, held "
+          f"<= {PLAN_FLOP_RTOL}; by kind {json.dumps(dict(got.flops))}); peak predicted "
+          f"{pred.peak_bytes / 2 ** 30:.3f} GiB measured {peak / 2 ** 30:.3f} GiB (rel "
+          f"{peak_err:.3f}), the later rounds' with K1's ids cached predicted "
+          f"{warm.peak_bytes / 2 ** 30:.3f} GiB measured {peak_warm / 2 ** 30:.3f} GiB (rel "
+          f"{warm_err:.3f}; max_memory_allocated after reset_peak_memory_stats less "
+          f"{base / 2 ** 30:.3f} GiB allocated before the state; held <= {PLAN_PEAK_RTOL}); "
+          f"traffic card {got.traffic:.4e} meta {pred.traffic:.4e} B; "
+          f"launches K9 {k9} K1 {k1}; loss {loss!r}  [{card}]", flush=True)
+    print(f"phase17c roofline on H100 constants: compute {rl.compute_s * 1e3:.3f} ms, memory "
+          f"{rl.memory_s * 1e3:.3f} ms; rounds {' '.join(f'{v:.3f}' for v in ms)} ms (after the "
+          f"counted one): measured / max(term) = {round_ms / (bound_s * 1e3):.3f}  [{card}]",
+          flush=True)
+    del state, batch, metrics
+    packing.bucket_ids_on.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def phase17(dev, card: str) -> None:
+    """Slice 8a on the card: the plans, the dry-run, the plan against a round."""
+    phase17a(card)
+    phase17b(card)
+    phase17c(dev, card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -3887,6 +4079,12 @@ def main() -> None:
     families_train = phase16(dev, card)
     trained = (f"phase 16: {FAMILY_TRAIN_ROUNDS} launcher rounds per arch at C "
                f"{FAMILY_TRAIN_CLIENTS}, train_100m's {TRAIN_100M_ROUNDS}")
+
+    # ---- phase 17: the launch tooling ---------------------------------------
+    mark("phase 17")
+    t17 = time.perf_counter()
+    phase17(dev, card)
+    print(f"phase17 {time.perf_counter() - t17:.1f} s  [{card}]", flush=True)
 
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",

@@ -1,6 +1,7 @@
 """Config registry: ``--arch <id>`` ids -> ArchConfig (port of
 ``repro/configs/__init__.py``): the reference's 10 assigned architectures in
-its ``ASSIGNED`` order, and the paper's own detector."""
+its ``ASSIGNED`` order, and the paper's own detector; ``SHAPES`` and
+``get_shape`` for the launch plans."""
 from repro_torch.configs import (
     fedyolov3,
     gemma3_27b,
@@ -14,7 +15,7 @@ from repro_torch.configs import (
     qwen3_1_7b,
     zamba2_2_7b,
 )
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
 
 ASSIGNED = [
     granite_3_8b.CONFIG,
@@ -39,4 +40,11 @@ def get_arch(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ASSIGNED", "REGISTRY", "ArchConfig", "get_arch"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ASSIGNED", "REGISTRY", "SHAPES", "ArchConfig", "ShapeConfig", "get_arch", "get_shape",
+           "shape_applicable"]

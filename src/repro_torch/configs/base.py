@@ -1,6 +1,7 @@
 """Architecture configuration (port of ``repro/configs/base.py::ArchConfig``).
 
-A plain copy: the config is pure Python, but importing it from the JAX
+With ``ShapeConfig``, ``SHAPES`` and ``shape_applicable``, the launch
+plans' (arch x shape) matrix. A plain copy: the config is pure Python, but importing it from the JAX
 package would run ``repro/__init__.py`` and with it JAX, so the port keeps
 its own. Field names, defaults and :meth:`ArchConfig.reduced` match the
 reference exactly, so a config compares equal field by field.
@@ -65,6 +66,17 @@ class ArchConfig:
         return not self.causal
 
     @property
+    def supports_long_decode(self) -> bool:
+        """True if long_500k decode is sub-quadratic/memory-feasible: SSM /
+        hybrid state, or a structural sliding window (gemma3 natively, any
+        dense arch under the beyond-paper `swa` serving variant)."""
+        if self.is_encoder_only:
+            return False
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.window > 0
+
+    @property
     def has_decode(self) -> bool:
         return not self.is_encoder_only
 
@@ -101,3 +113,28 @@ class ArchConfig:
             q_group_pad=0,
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Return (applicable, reason-if-not) per the DESIGN.md skip matrix."""
+    if shape.kind == "decode" and not arch.has_decode:
+        return False, "encoder-only architecture has no decode step"
+    if shape.name == "long_500k" and not arch.supports_long_decode:
+        return False, "pure full-attention arch: long-context decode skipped (see DESIGN.md)"
+    return True, ""

@@ -40,6 +40,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import packing
+from repro_torch.models.params import Spec, map_tree
 
 PyTree = Any
 
@@ -68,6 +69,13 @@ class Aggregator:
     def init_state(self, packed0: torch.Tensor) -> PyTree:
         """Aggregator state from the packed initial params. Default: none."""
         return {}
+
+    def state_pspecs(self, axis_sizes: dict | None = None) -> PyTree:
+        """Specs (``models.params.Spec``) matching init_state's structure, for
+        a launch plan. Default: all replicated server-side state."""
+        C = self.ctx.fed.n_clients
+        meta = torch.empty((C, self.ctx.spec.n_total), device="meta")
+        return map_tree(lambda _: Spec(), self.init_state(meta))
 
     def aggregate(self, packed: torch.Tensor, weights: torch.Tensor, agg_state: PyTree,
                   mask: torch.Tensor | None = None) -> tuple[torch.Tensor, PyTree]:

@@ -13,6 +13,7 @@ from __future__ import annotations
 from repro_torch.core import compression as comp
 from repro_torch.core import packing
 from repro_torch.core.aggregators.base import Aggregator, register
+from repro_torch.models.params import Spec
 
 
 @register
@@ -21,6 +22,9 @@ class Eq6(Aggregator):
 
     def init_state(self, packed0):
         return {"prev_sums": packing.bucket_sums(self.ctx.spec, packed0)}
+
+    def state_pspecs(self, axis_sizes=None):
+        return {"prev_sums": Spec(self.ctx.fed.client_axis, None)}
 
     def aggregate(self, packed, weights, agg_state, mask=None):
         new_sums = packing.bucket_sums(self.ctx.spec, packed)  # (C, B)

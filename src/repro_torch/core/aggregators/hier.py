@@ -89,6 +89,12 @@ class Hier(Aggregator):
         # dispatch), copied out of the round buffer
         return self._impl.init_state(packed0[:: self.group_size].clone())
 
+    def state_pspecs(self, axis_sizes=None):
+        if self._delegate:
+            return self._impl.state_pspecs(axis_sizes)
+        # outer state is group-granular ((C/G, ...) at most): replicated
+        return super().state_pspecs(axis_sizes)
+
     def aggregate(self, packed, weights, agg_state, mask=None):
         if self._delegate:
             return self._impl.aggregate(packed, weights, agg_state, mask)

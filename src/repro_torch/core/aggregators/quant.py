@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from repro_torch.core import packing
 from repro_torch.core.aggregators.base import Aggregator, _client_shards, gather_clients, register
+from repro_torch.models.params import Spec
 
 
 @register
@@ -57,6 +58,10 @@ class Quant8(Aggregator):
         # the dispatched (N,) row each client diffs against next round: a
         # copy, never a view of the round buffer the next local step rewrites
         return {"base": packed0[0].clone()}
+
+    def state_pspecs(self, axis_sizes=None):
+        ps = packing.packed_spec(self.ctx.spec.n_total, self.ctx.fed.client_axis, axis_sizes)
+        return {"base": Spec(*ps[1:])}  # the dispatched row: no client dim
 
     def _quant(self, delta, block):
         if self.ctx.fed.agg_impl == "kernel":

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
-from repro_torch.models.params import flatten_with_paths, unflatten
+from repro_torch.models.params import (PROD_AXIS_SIZES, Spec, flatten_with_paths, spec_for,
+                                       unflatten)
 
 PyTree = Any
 
@@ -102,6 +103,35 @@ def packed_pspec(n_clients: int, client_axis: str, mesh=None) -> slice:
     k = n_clients // S
     r = mesh.get_local_rank(client_axis)
     return slice(r * k, (r + 1) * k)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    """The spec of a packed buffer sharded leaf by leaf: its leading dims
+    by ``lead``, and in its flat dim the segment of each template leaf by
+    that leaf's own spec (``segments``: one (leaf shape, spec) a leaf, in
+    packing order). The port's packed moment buffers are the reference's
+    moment trees laid end to end; this is their ``PartitionSpec`` tree."""
+
+    lead: Spec
+    segments: tuple
+
+    @classmethod
+    def of(cls, template: PyTree, lead: Spec, rules: dict | None = None,
+           axis_sizes: dict | None = None) -> "SegmentSpec":
+        return cls(lead, tuple((info.shape, spec_for(info, rules, axis_sizes))
+                               for _, info in flatten_with_paths(template)))
+
+
+def packed_spec(n_total: int, client_axis: str, axis_sizes: dict | None = None) -> Spec:
+    """The reference's ``packed_pspec`` as a plan's spec (``models.params.Spec``)
+    of the (C, N_total) buffer: the client dim on ``client_axis``, the flat
+    dim on ``"model"`` where that axis exists and divides N_total, by the
+    axis sizes of a launch plan (the production sizes by default)."""
+    sizes = PROD_AXIS_SIZES if axis_sizes is None else axis_sizes
+    if "model" in sizes and n_total % sizes["model"] == 0:
+        return Spec(client_axis, "model")
+    return Spec(client_axis, None)
 
 
 @functools.lru_cache(maxsize=16)

@@ -45,6 +45,15 @@ reports the same metrics. quant8 and hier move their own rows
 one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
 (what XLA's SPMD does for them in the reference). The tree layout (slice 9)
 raises ``NotImplementedError``.
+
+For the launch plans (``launch.specs``), :func:`state_template` gives the
+round state on the ``meta`` device (shapes, no memory) and
+:func:`state_pspecs` its specs (``models.params.Spec``, the reference's
+``PartitionSpec`` entries): the packed params as the reference's
+``packed_pspec``, and each packed moment buffer as a
+``packing.SegmentSpec``, every template leaf's segment sharded by the
+reference's spec for that leaf's moment, so a plan's per-device bytes are
+the reference's.
 """
 from __future__ import annotations
 
@@ -149,6 +158,57 @@ def _check_ported(fed: FedConfig) -> None:
         raise ValueError(f"microbatches={fed.microbatches} must be >= 1")
     if fed.agg_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown agg_impl {fed.agg_impl!r}; expected ref|kernel")
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (launch plans)
+# ---------------------------------------------------------------------------
+
+def stacked_pspecs(template: PyTree, client_axis: str, rules: dict | None = None,
+                   axis_sizes: dict | None = None) -> PyTree:
+    """Param specs with the leading client dim on ``client_axis``."""
+    return mp.map_tree(lambda s: mp.Spec(client_axis, *s), mp.pspecs(template, rules, axis_sizes))
+
+
+def batch_pspecs(batch_template: PyTree, fed: FedConfig) -> PyTree:
+    spec = mp.Spec(fed.client_axis, None, fed.data_axis)  # (C, E, b, ...)
+    return mp.map_tree(lambda _: spec, batch_template)
+
+
+def state_template(cfg, fed: FedConfig, optimizer: Optimizer, dtype: torch.dtype) -> PyTree:
+    """The round state of :func:`make_state` on the ``meta`` device, params
+    in ``dtype``: what a plan's step function takes, with no memory."""
+    agg = make_aggregator(cfg, fed)
+    n = agg.ctx.spec.n_total
+    packed = torch.empty((fed.n_clients, n), dtype=dtype, device="meta")
+    if not agg.stacked:
+        return {"params": packed[0], "opt": {k: v[0] for k, v in optimizer.init(packed[:1]).items()},
+                "agg": {}, "round": 0}
+    return {"params": packed, "opt": optimizer.init(packed), "agg": agg.init_state(packed),
+            "round": 0}
+
+
+def state_pspecs(cfg, fed: FedConfig, optimizer: Optimizer, rules: dict | None = None,
+                 opt_rules: dict | None = None, axis_sizes: dict | None = None) -> PyTree:
+    """Specs of :func:`state_template`'s leaves. ``opt_rules``: separate
+    rules for the optimizer moments, ZeRO-1 style (moments over data while
+    params stay TP-only)."""
+    agg = make_aggregator(cfg, fed)
+    tpl = agg.ctx.template
+    mrules = opt_rules if opt_rules else rules
+    if not agg.stacked:
+        pspec = packing.SegmentSpec.of(tpl, mp.Spec(), rules, axis_sizes)
+        mspec = packing.SegmentSpec.of(tpl, mp.Spec(), mrules, axis_sizes)
+    else:
+        pspec = packing.packed_spec(agg.ctx.spec.n_total, fed.client_axis, axis_sizes)
+        mspec = packing.SegmentSpec.of(tpl, mp.Spec(fed.client_axis), mrules, axis_sizes)
+    moments = optimizer.init(torch.empty((1, 0), device="meta"))
+    return {
+        "params": pspec,
+        "opt": {k: (mspec if k in ("mu", "m", "v") else mp.Spec()) for k in moments},
+        "agg": agg.state_pspecs(axis_sizes) if agg.stacked else {},
+        "round": mp.Spec(),
+    }
 
 
 # ---------------------------------------------------------------------------

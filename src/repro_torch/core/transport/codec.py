@@ -74,26 +74,38 @@ def _as_row(x) -> np.ndarray:
 
 # -- dense -------------------------------------------------------------------
 
-def encode_dense(row) -> bytes:
+def dense_parts(row) -> tuple[bytes, memoryview]:
+    """The dense payload as (tag + header, the row's bytes): the bytes are
+    the row's own memory where it is little-endian and contiguous already,
+    so a sender writes them without a copy (``wire.send_frame``)."""
     row = _as_row(row)
     if row.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported row dtype {row.dtype}")
     hdr = _DENSE_HDR.pack(_DTYPE_CODES[row.dtype], row.size)
-    # little-endian and contiguous without a copy where the row already is;
-    # the one copy is the join
     data = np.ascontiguousarray(row, row.dtype.newbyteorder("<"))
-    return b"".join((bytes([DENSE]), hdr, memoryview(data).cast("B")))
+    return bytes([DENSE]) + hdr, memoryview(data).cast("B")
 
 
-def _decode_dense(buf: bytes) -> np.ndarray:
+def encode_dense(row) -> bytes:
+    return b"".join(dense_parts(row))
+
+
+def _dense_view(buf) -> np.ndarray:
+    """The row of a dense payload (tag stripped) as a read-only view of
+    ``buf``, in its little-endian dtype: no copy."""
     code, n = _DENSE_HDR.unpack_from(buf, 0)
     if code not in _DTYPES:
         raise ValueError(f"unknown dtype code {code}")
     dt = np.dtype(_DTYPES[code]).newbyteorder("<")
-    body = buf[_DENSE_HDR.size :]
-    if len(body) != n * dt.itemsize:
-        raise ValueError(f"dense payload of {len(body)} bytes != {n} x {dt.itemsize}")
-    return np.frombuffer(body, dt, count=n).astype(_DTYPES[code])
+    if len(buf) - _DENSE_HDR.size != n * dt.itemsize:
+        raise ValueError(f"dense payload of {len(buf) - _DENSE_HDR.size} bytes != "
+                         f"{n} x {dt.itemsize}")
+    return np.frombuffer(buf, dt, count=n, offset=_DENSE_HDR.size)
+
+
+def _decode_dense(buf: bytes) -> np.ndarray:
+    view = _dense_view(buf)
+    return view.astype(view.dtype.newbyteorder("="))
 
 
 # -- quant8 ------------------------------------------------------------------
@@ -120,27 +132,35 @@ def dequantize_blocks(q: np.ndarray, scale: np.ndarray, n: int) -> np.ndarray:
     return (q.astype(np.float32) * scale[:, None].astype(np.float32)).reshape(-1)[:n]
 
 
-def encode_quant8(row, block: int) -> bytes:
+def quant8_parts(row, block: int) -> tuple:
+    """The quant8 payload as (tag + header, the scales, the int8 blocks),
+    the blocks a view of the quantized array (no ``tobytes`` copy)."""
     row = _as_row(row)
     q, scale = quantize_blocks(row, block)
     hdr = _QUANT_HDR.pack(row.size, block)
-    return (
-        bytes([QUANT8])
-        + hdr
-        + scale.astype("<f4").tobytes()
-        + q.tobytes()
-    )
+    return bytes([QUANT8]) + hdr, scale.astype("<f4").tobytes(), memoryview(q).cast("B")
 
 
-def _decode_quant8(buf: bytes) -> np.ndarray:
+def encode_quant8(row, block: int) -> bytes:
+    return b"".join(quant8_parts(row, block))
+
+
+def quant8_views(buf) -> tuple[int, int, np.ndarray, np.ndarray]:
+    """A quant8 payload (tag stripped) -> (n, block, the (nb,) f32 scales,
+    the (nb, block) int8 blocks), the blocks a read-only view of ``buf``."""
     n, block = _QUANT_HDR.unpack_from(buf, 0)
     nb = -(-n // block)
     off = _QUANT_HDR.size
     scale = np.frombuffer(buf, "<f4", count=nb, offset=off).astype(np.float32)
     off += nb * 4
-    q = np.frombuffer(buf, np.int8, count=nb * block, offset=off).reshape(nb, block)
     if len(buf) != off + nb * block:
         raise ValueError("quant8 payload size mismatch")
+    q = np.frombuffer(buf, np.int8, count=nb * block, offset=off).reshape(nb, block)
+    return n, block, scale, q
+
+
+def _decode_quant8(buf: bytes) -> np.ndarray:
+    n, _, scale, q = quant8_views(buf)
     return dequantize_blocks(q, scale, n)
 
 
@@ -262,6 +282,21 @@ def encode_row(row, codec: str = "dense", block: int = 1024) -> bytes:
     return encode_dense(row)
 
 
+def row_parts(row, codec: str = "dense") -> tuple:
+    """:func:`encode_row`'s payload as parts (:func:`dense_parts`)."""
+    if codec not in CODECS:
+        raise ValueError(f"unknown wire codec {codec!r}; expected {sorted(CODECS)}")
+    return dense_parts(row)
+
+
+def row_view(buf) -> np.ndarray:
+    """:func:`decode_row` without a copy where the payload is dense: a
+    read-only view of ``buf`` (a ``memoryview`` of the frame keeps it so)."""
+    if buf and buf[0] == DENSE:
+        return _dense_view(memoryview(buf)[1:])
+    return decode_row(buf)
+
+
 def decode_row(buf: bytes) -> np.ndarray:
     if not buf:
         raise ValueError("empty row payload")
@@ -289,6 +324,17 @@ def encode_update(row_new, row_base, codec: str = "dense", block: int = 1024) ->
             return encode_quant4(delta, block)
         return encode_topk(delta, block)
     raise ValueError(f"unknown wire codec {codec!r}; expected {sorted(CODECS)}")
+
+
+def update_parts(row_new, row_base, codec: str = "dense", block: int = 1024) -> tuple:
+    """:func:`encode_update`'s payload as parts: dense and quant8 without
+    joining the row's bytes (:func:`dense_parts`, :func:`quant8_parts`)."""
+    if codec == "dense":
+        return dense_parts(row_new)
+    if codec == "quant8":
+        return quant8_parts(np.asarray(row_new, np.float32) - np.asarray(row_base, np.float32),
+                            block)
+    return (encode_update(row_new, row_base, codec, block),)
 
 
 def decode_update(buf: bytes, row_base) -> np.ndarray:

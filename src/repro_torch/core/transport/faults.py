@@ -197,6 +197,14 @@ class FaultPlan:
             self._fire(op)
         return out
 
+    def pending_on(self, side: str) -> bool:
+        """True while an op that acts on outbound frames or bytes of
+        ``side`` (corrupt, drop, dup, delay, sever) has not fired."""
+        with self._lock:
+            return any(op.side == side and not op.done
+                       and op.kind in ("corrupt", "drop", "dup", "delay", "sever")
+                       for op in self.ops)
+
     def _sever_budget(self, side: str, nbytes: int) -> bool:
         """Account `nbytes` about to be sent; True => sever now."""
         with self._lock:
@@ -236,6 +244,16 @@ class FaultySocket:
             raise ConnectionResetError(f"fault plan severed the {self._side} socket")
         for chunk in self._plan._on_send(self._side, data):
             self._sock.sendall(chunk)
+
+    def send_parts(self, parts) -> None:
+        """One frame as ``wire.frame_parts``: written part by part where no
+        pending op of this side could act on it, else joined and sent
+        through :meth:`sendall`, one frame a call as the ops need."""
+        if self._plan.pending_on(self._side):
+            self.sendall(b"".join(parts))
+            return
+        for p in parts:
+            self._sock.sendall(p)
 
     def __getattr__(self, name):
         return getattr(self._sock, name)

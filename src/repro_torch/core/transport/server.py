@@ -28,11 +28,17 @@ Every landing-loop action is recorded into an `ArrivalSchedule`
 the record a SimClock replay must reproduce bit-for-bit (dense codec).
 
 The engine's rows live on its device (the card by default). Only the
-landing loop touches them: each landing reads the base row off the device
-in one copy, decodes on the host, copies the decoded row back and lands
-it; each dispatch reads the row once more. ``WireRunStats.landing_ms``,
-``dispatch_ms`` and ``snapshot_ms`` time those steps per landing, per
-dispatch and per snapshot.
+landing loop touches them, and a row crosses the bus once a hop, through
+one pinned host buffer the loop reuses: a dispatch copies the row into it
+and writes the frame straight from it (``wire.send_frame``); a dense
+landing copies the payload into it and from there to the device; a quant8
+landing sends its int8 blocks and scales the same way and adds their
+dequantized delta to the base row on the device (the f32 multiply and add
+of ``codec.decode_update``, so the row is the host decode's bit for bit),
+never reading the base off the card. Other codecs decode on the host
+against a copy of the base. ``WireRunStats.landing_ms``, ``dispatch_ms``
+and ``snapshot_ms`` time those steps per landing, per dispatch and per
+snapshot.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import socket
 import threading
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.simclock import WallClock
@@ -133,6 +140,7 @@ class WireServer:
         self.liveness: dict[int, str] = {}
         self.liveness_log: list[tuple[float, int, str]] = []
         self._deferred: set[int] = set()  # HELLOs from staged clients, dispatch at flush
+        self._pinned: torch.Tensor | None = None  # the landing loop's staging bytes
         self._stopping = threading.Event()
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -200,19 +208,20 @@ class WireServer:
         parser = wire.FrameParser()
         client: int | None = None
         clock = self.engine.clock  # a killed server gives its engine up
+        chunk = bytearray(wire.RECV_CHUNK)
         while not self._stopping.is_set():
             try:
-                data = sock.recv(1 << 16)
+                n = sock.recv_into(chunk)
             except OSError:
                 break
-            if not data:
+            if not n:
                 break
             # peek, never sync: only the landing loop advances the engine clock
             t = clock.peek()
             with self._lock:
-                self.stats.bytes_up += len(data)
+                self.stats.bytes_up += n
             try:
-                frames = parser.feed(data)
+                frames = parser.feed(memoryview(chunk)[:n])
             except ValueError:
                 break  # corrupt stream: drop the connection, liveness handles it
             if parser.crc_errors:
@@ -238,7 +247,7 @@ class WireServer:
                             self.stats.reconnects += 1
                     self._put(("hello", client, None))
                 elif ftype == wire.UPDATE:
-                    c, seq, version, loss, buf = wire.parse_update(payload)
+                    c, seq, version, loss, buf = wire.parse_update(memoryview(payload))
                     with self._lock:
                         self._last_seen[c] = t
                     self._put(("update", c, (seq, version, loss, buf)))
@@ -258,7 +267,8 @@ class WireServer:
 
     # -- landing loop (the only engine owner) ---------------------------------
 
-    def _send(self, c: int, frame: bytes) -> None:
+    def _send(self, c: int, frame) -> None:
+        """One frame, whole or as ``wire.frame_parts``, to client ``c``."""
         with self._lock:
             sock = self._conns.get(c)
             slock = self._send_locks.get(c)
@@ -266,9 +276,9 @@ class WireServer:
             return
         try:
             with slock:
-                sock.sendall(frame)
+                wire.send_frame(sock, frame)
             with self._lock:
-                self.stats.bytes_down += len(frame)
+                self.stats.bytes_down += wire.frame_nbytes(frame)
         except OSError:
             pass  # client gone mid-send; liveness will flag it
 
@@ -278,12 +288,54 @@ class WireServer:
             torch.cuda.synchronize(self.engine.device)
         return time.perf_counter() * 1e3
 
+    def _stage(self, dtype, shape: tuple) -> torch.Tensor:
+        """A tensor of ``dtype`` (a NumPy dtype) and ``shape`` over the loop's
+        pinned staging bytes, grown to fit and reused by every landing and
+        dispatch: the loop is one thread and sends synchronously."""
+        dtype = np.dtype(dtype).newbyteorder("=")
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        if self._pinned is None or self._pinned.numel() < nbytes:
+            self._pinned = None
+            self._pinned = torch.empty(nbytes, dtype=torch.uint8,
+                                       pin_memory=self.engine.device.type == "cuda")
+        like = torch.from_numpy(np.empty(0, dtype)).dtype
+        return self._pinned[:nbytes].view(like).view(shape)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` copied once into the staging bytes, then to the engine's
+        device (on the host the staged tensor itself)."""
+        staged = self._stage(arr.dtype, arr.shape)
+        np.copyto(staged.numpy(), arr)
+        return staged.to(self.engine.device)
+
+    def _decode_landing(self, c: int, buf) -> tuple[torch.Tensor, float, float]:
+        """An UPDATE payload -> (the trained row on the engine's device, host
+        ms after reading the base, host ms after the host decode)."""
+        tag = buf[0] if len(buf) else -1
+        if tag == codec.DENSE:
+            t1 = time.perf_counter() * 1e3
+            view = codec.row_view(buf)
+            return self._to_device(view), t1, time.perf_counter() * 1e3
+        if tag == codec.QUANT8:
+            t1 = time.perf_counter() * 1e3
+            n, _, scale, q = codec.quant8_views(memoryview(buf)[1:])
+            t2 = time.perf_counter() * 1e3
+            dev = self.engine.device
+            delta = torch.from_numpy(scale).to(dev)[:, None] * self._to_device(q).float()
+            return self.engine.state["params"][c].float() + delta.reshape(-1)[:n], t1, t2
+        base = self.engine.state["params"][c].to("cpu", torch.float32).numpy()
+        t1 = time.perf_counter() * 1e3
+        row = codec.decode_update(buf, base)
+        return torch.from_numpy(row).to(self.engine.device), t1, time.perf_counter() * 1e3
+
     def _send_dispatch(self, c: int) -> None:
         t0 = self._sync()
-        row = self.engine.dispatch_row(c)
+        src = self.engine.state["params"][c]
+        row = self._stage(np.float32, (src.numel(),))
+        row.copy_(src)  # the dispatch's one device-to-host copy
         t1 = self._sync()
-        frame = wire.pack_dispatch(
-            int(self.engine.dispatch_version[c]), codec.encode_row(row, self.codec)
+        frame = wire.dispatch_parts(
+            int(self.engine.dispatch_version[c]), *codec.row_parts(row.numpy(), self.codec)
         )
         t2 = time.perf_counter() * 1e3
         self._send(c, frame)
@@ -353,15 +405,10 @@ class WireServer:
                     self.stats.superseded += 1
                     continue
                 t0 = self._sync()
-                # one device-to-host copy of the row the update was trained on
-                base = self.engine.state["params"][c].to("cpu", torch.float32).numpy()
-                t1 = time.perf_counter() * 1e3
                 try:
-                    row = codec.decode_update(buf, base)
+                    row, t1, t2 = self._decode_landing(c, buf)
                 except ValueError:
                     continue  # corrupt payload: skip; the client will retrain on redispatch
-                t2 = time.perf_counter() * 1e3
-                row = torch.from_numpy(row).to(self.engine.device)
                 t3 = self._sync()
                 try:
                     res = self.engine.land(c, row, loss=loss, t=t)

@@ -6,8 +6,10 @@ never imports the JAX package). Frames stay byte-compatible with
 PROTOCOL_VERSION 3, so the reference's clients and servers talk to the
 port's. Where the reference concatenates a frame's pieces and slices its
 body out of the receive buffer (three copies of a gigabyte row each way),
-the port copies the row once when it frames it and once when it parses
-it; the bytes are the same.
+the port writes a row's frame as parts (:func:`frame_parts`,
+:func:`send_frame`: one ``sendmsg`` of the header and the row's own
+memory, no join) and copies it once when it parses it; the bytes are the
+same.
 
 One frame on the socket is::
 
@@ -99,11 +101,16 @@ HEADER_BYTES = _LEN.size + _CRC.size  # per-frame framing overhead before the bo
 # payload of a 314B-param arch ships sharded, never as one frame
 MAX_FRAME = 1 << 31
 
+# bytes a reader takes from its socket a call, into one reused buffer: a
+# gigabyte row arrives in hundreds of calls, not tens of thousands
+RECV_CHUNK = 1 << 22
 
-def encode_frame(ftype: int, payload: bytes = b"", *more: bytes) -> bytes:
-    """One wire frame: length prefix + CRC32 + type byte + payload, the
-    payload being ``payload`` followed by ``more`` (joined once, into the
-    frame)."""
+
+def frame_parts(ftype: int, payload=b"", *more) -> tuple:
+    """One wire frame as parts, not joined: the length prefix and CRC32,
+    the type byte, then ``payload`` and ``more`` as given (bytes or
+    contiguous buffers, a row's memory among them). :func:`send_frame`
+    writes them; ``b"".join`` of them is :func:`encode_frame`."""
     if ftype not in FRAME_TYPES:
         raise ValueError(f"unknown frame type {ftype}")
     parts = (bytes([ftype]), payload, *more)
@@ -113,7 +120,42 @@ def encode_frame(ftype: int, payload: bytes = b"", *more: bytes) -> bytes:
     crc = 0
     for p in parts:
         crc = zlib.crc32(p, crc)
-    return b"".join((_LEN.pack(n), _CRC.pack(crc), *parts))
+    return (_LEN.pack(n) + _CRC.pack(crc), *parts)
+
+
+def encode_frame(ftype: int, payload: bytes = b"", *more: bytes) -> bytes:
+    """One wire frame: length prefix + CRC32 + type byte + payload, the
+    payload being ``payload`` followed by ``more`` (joined once, into the
+    frame)."""
+    return b"".join(frame_parts(ftype, payload, *more))
+
+
+def frame_nbytes(frame) -> int:
+    """Bytes of a frame given whole or as :func:`frame_parts`."""
+    if isinstance(frame, (bytes, bytearray)):
+        return len(frame)
+    return sum(memoryview(p).nbytes for p in frame)
+
+
+def send_frame(sock, frame) -> None:
+    """Write one frame, whole (bytes) or as :func:`frame_parts`. Parts go
+    out by ``sendmsg`` straight from their own memory, or, on a socket a
+    fault plan intercepts frame by frame (``faults.FaultySocket``), through
+    its ``send_parts``."""
+    if isinstance(frame, (bytes, bytearray)):
+        sock.sendall(frame)
+        return
+    if hasattr(sock, "send_parts"):
+        sock.send_parts(frame)
+        return
+    views = [v for v in (memoryview(p).cast("B") for p in frame) if v.nbytes]
+    while views:
+        sent = sock.sendmsg(views[:64])
+        while sent:
+            if sent >= views[0].nbytes:
+                sent -= views.pop(0).nbytes
+            else:
+                views[0], sent = views[0][sent:], 0
 
 
 class FrameParser:
@@ -186,6 +228,12 @@ def pack_dispatch(version: int, row_payload: bytes) -> bytes:
     return encode_frame(DISPATCH, _DISPATCH.pack(version), row_payload)
 
 
+def dispatch_parts(version: int, *row_parts) -> tuple:
+    """:func:`pack_dispatch`'s frame as :func:`frame_parts`, the row payload
+    given as parts (``codec.dense_parts``)."""
+    return frame_parts(DISPATCH, _DISPATCH.pack(version), *row_parts)
+
+
 def parse_dispatch(payload: bytes) -> tuple[int, bytes]:
     (version,) = _DISPATCH.unpack_from(payload, 0)
     return version, payload[_DISPATCH.size :]
@@ -194,6 +242,12 @@ def parse_dispatch(payload: bytes) -> tuple[int, bytes]:
 def pack_update(client_id: int, seq: int, version: int, loss: float,
                 row_payload: bytes) -> bytes:
     return encode_frame(UPDATE, _UPDATE.pack(client_id, seq, version, loss), row_payload)
+
+
+def update_parts(client_id: int, seq: int, version: int, loss: float, *row_parts) -> tuple:
+    """:func:`pack_update`'s frame as :func:`frame_parts`, the payload given
+    as parts (``codec.update_parts``)."""
+    return frame_parts(UPDATE, _UPDATE.pack(client_id, seq, version, loss), *row_parts)
 
 
 def parse_update(payload: bytes) -> tuple[int, int, int, float, bytes]:

@@ -5,7 +5,10 @@
 tensors on the card it launches the hand-written CUDA kernel
 ``csrc/flash_attention.cu``; for tensors on the CPU it runs the plain
 version ``kernels.ref.flash_attention``. A CUDA tensor never takes the plain
-version: the kernel launches or the call raises. The kernel reads q, k and v
+version: the kernel launches or the call raises. On the ``meta`` device (the
+launch plans' dry-run) it returns an empty output of the kernel's shape and
+dtype and launches nothing; on the card and on ``meta`` it reports its work
+to the op counter (``kernels.costs``). The kernel reads q, k and v
 through their strides, so the model's (B, S, H, hd) projections need no
 copy, and it writes a (B, S, H, hd) buffer returned as its (B, H, S, hd)
 view. Like the TPU kernel it is a forward pass only; training reaches it
@@ -17,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 
 BLOCK = 64  # key rows per tile of the CUDA kernel; S must be a multiple
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,8 +42,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     _build.forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, not {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, H, S, hd) and k, v (B, Hkv, S, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -58,6 +61,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"got S={S}, hd={hd}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    costs.report("flash_attention", *costs.flash_attention(B, H, Hkv, S, hd, causal, window,
+                                                           q.element_size()),
+                 "tf32x3" if q.dtype == torch.float32 else "bf16")
+    if q.device.type == "meta":
+        return torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     q, k, v = (t if t.stride(-1) == 1 and _rows_aligned(t)
                else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)

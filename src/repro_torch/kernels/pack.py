@@ -8,7 +8,9 @@ static_topn round runs under ``FedConfig.agg_impl="kernel"``
 the hand-written CUDA kernel ``csrc/bucket_reduce.cu``; for a tensor on the
 CPU it runs the plain version ``kernels.ref.packed_bucket_reduce``. A CUDA
 tensor never takes the plain version: the kernel launches or the call
-raises. :func:`quant8_reduce` (``csrc/quant_reduce.cu``) is quant8's one
+raises. On the ``meta`` device (the launch plans' dry-run) it returns empty
+outputs and launches nothing; on the card and on ``meta`` it reports its
+work to the op counter (``kernels.costs``). :func:`quant8_reduce` (``csrc/quant_reduce.cu``) is quant8's one
 launch per round without a client mesh, :func:`quantize_rows`
 (``csrc/row_quant.cu``) its one launch per round with one (the gathered
 int8 transport; :func:`dequantize_rows` is its inverse, which no round
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 
 
 def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: torch.Tensor,
@@ -29,8 +31,9 @@ def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: 
     (N,)) f32. Counts its CUDA launches in ``packed_bucket_reduce.launches``."""
     if packed.device.type == "cpu":
         return ref.packed_bucket_reduce(packed, wmask, bucket_ids, mask)
-    if packed.device.type != "cuda":
-        raise ValueError(f"packed_bucket_reduce runs on cuda or cpu tensors, not {packed.device}")
+    if packed.device.type not in ("cuda", "meta"):
+        raise ValueError(f"packed_bucket_reduce runs on cuda, cpu or meta tensors, "
+                         f"not {packed.device}")
     if packed.dim() != 2 or wmask.dim() != 2 or wmask.shape[0] != packed.shape[0]:
         raise ValueError(f"expected packed (C, N) and wmask (C, B), got "
                          f"{tuple(packed.shape)} and {tuple(wmask.shape)}")
@@ -49,6 +52,10 @@ def packed_bucket_reduce(packed: torch.Tensor, wmask: torch.Tensor, bucket_ids: 
         raise ValueError("packed, wmask, bucket_ids and mask must be on one device")
     if not all(t.is_contiguous() for t in (packed, wmask, bucket_ids, mask)):
         raise ValueError("packed_bucket_reduce takes contiguous tensors")
+    costs.report("packed_bucket_reduce", *costs.packed_bucket_reduce(C, N, wmask.shape[1]), "fp32")
+    if packed.device.type == "meta":  # the dry-run: the outputs' shapes, no launch
+        return (torch.empty(N, dtype=torch.float32, device=packed.device),
+                torch.empty(N, dtype=torch.float32, device=packed.device))
     # the kernel indexes wmask with the ids: one reduction and a host sync
     lo, hi = (int(v) for v in torch.aminmax(bucket_ids)) if N else (0, 0)
     if N and (lo < 0 or hi >= wmask.shape[1]):

@@ -5,13 +5,16 @@
 ``kernels.ops.ssd_full``). For tensors on the card it launches the
 hand-written CUDA kernel ``csrc/ssd_scan.cu``; for tensors on the CPU it runs
 the plain version ``kernels.ref.ssd_chunk_scan``. A CUDA tensor never takes
-the plain version: the kernel launches or the call raises.
+the plain version: the kernel launches or the call raises. On the ``meta``
+device (the launch plans' dry-run) it returns empty outputs of the kernel's
+shapes and launches nothing; on the card and on ``meta`` it reports its work
+to the op counter (``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 
 MAX_DIM = 128  # the kernel's bound on the chunk, state and head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -37,8 +40,8 @@ def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: to
         raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
     if xdt.device.type == "cpu":
         return ref.ssd_chunk_scan(xdt, dA, Bm, Cm, chunk)
-    if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_scan runs on cuda or cpu tensors, not {xdt.device}")
+    if xdt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunk_scan runs on cuda, cpu or meta tensors, not {xdt.device}")
     if any(t.device != xdt.device for t in (dA, Bm, Cm)):
         raise ValueError("xdt, dA, Bm and Cm must be on one device")
     if max(chunk, N, P) > MAX_DIM or B > 65535 or H > 65535:
@@ -46,12 +49,18 @@ def ssd_chunk_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: to
     dtype = xdt.dtype if xdt.dtype == Bm.dtype == Cm.dtype else torch.float32
     if dtype not in DTYPES:
         raise TypeError(f"ssd_chunk_scan takes float32 or bfloat16 operands, got {dtype}")
+    esize = torch.empty((), dtype=dtype).element_size()
+    costs.report("ssd_chunk_scan", *costs.ssd_chunk_scan(B, S, H, P, N, chunk, esize),
+                 "tf32x3" if dtype == torch.float32 else "bf16")
+    nc = S // chunk
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    if xdt.device.type == "meta":
+        return (torch.empty((B, S, H, P), **f32), torch.empty((B, nc, H, P, N), **f32),
+                torch.empty((B, nc, H), **f32), torch.empty((B, S, H), **f32))
     # contiguous and 16-byte aligned, as the kernel's cp.async copies need
     xdt, Bm, Cm = (t.to(dtype).contiguous() for t in (xdt, Bm, Cm))
     xdt, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xdt, Bm, Cm))
     dA = dA.float().contiguous()
-    nc = S // chunk
-    f32 = dict(dtype=torch.float32, device=xdt.device)
     y = torch.empty((B, S, H, P), **f32)
     states = torch.empty((B, nc, H, P, N), **f32)
     decay = torch.empty((B, nc, H), **f32)

@@ -200,6 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--full-size", action="store_true", help="use the full (non-reduced) config")
     ap.add_argument("--store", default="", help="COS object-store directory")
+    ap.add_argument("--print-plan", action="store_true",
+                    help="print the production launch plans of --arch at train_4k and exit")
     ap.add_argument("--seed", type=int, default=0, help="initial model and load model seed")
     return ap
 
@@ -324,7 +326,8 @@ def client_mesh(dev: torch.device):
 @functools.cache
 def _client_mesh(kind: str, world):
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_host_mesh
 
     config = dist.get_backend_config(world)
     want = "nccl" if kind == "cuda" else "gloo"
@@ -333,7 +336,7 @@ def _client_mesh(kind: str, world):
             f"the 1 x 1 client mesh on {kind} needs a one-rank process group with {want} for "
             f"{kind} tensors; this process already has a {dist.get_world_size(world)}-rank group "
             f"with backends {config!r}")
-    return init_device_mesh(kind, (1, 1), mesh_dim_names=("data", "model"))
+    return make_host_mesh(1, 1, kind)
 
 
 def make_server(args, cfg, fed: FedConfig, dev: torch.device, task_id: str) -> FLServer:
@@ -559,8 +562,31 @@ def train_detection(args, log=lambda m: print(m, flush=True)) -> TrainRun:
     return TrainRun(server, slot, eval_batch, served, summary)
 
 
+def print_plan(arch_name: str) -> None:
+    """The reference launcher's ``--print-plan``: the single- and multi-pod
+    ``train_4k`` plans of ``launch.specs.make_plan``, line for line."""
+    from repro_torch.launch import specs
+
+    for multi in (False, True):
+        plan = specs.make_plan(arch_name, "train_4k", multi)
+        print(f"== {plan.name}")
+        print(f"   kind={plan.kind} aggregation={plan.aggregation}")
+        if plan.fed:
+            print(f"   clients={plan.fed.n_clients} client_axis={plan.fed.client_axis} "
+                  f"data_axis={plan.fed.data_axis} microbatches={plan.fed.microbatches} "
+                  f"topn={plan.fed.topn}")
+        print(f"   rules={ {k: v for k, v in plan.rules.items() if v} }")
+
+
 def main(argv: list[str] | None = None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.print_plan and not (args.replay_schedule or args.restore
+                                or args.transport == "socket"):
+        arch = args.arch or ("fedyolov3" if args.task == "detection" else None)
+        if arch is None:
+            raise ValueError("--arch is required (or pass --task detection)")
+        print_plan(arch)
+        return {}
     if args.replay_schedule:
         summary = replay_schedule(args)
     elif args.restore:

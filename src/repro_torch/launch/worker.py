@@ -19,8 +19,12 @@ client, seq) via `transport.replay.synth_client_batch`. Nothing about the
 data crosses the wire; ``seq`` (the client-local update counter) rides the
 UPDATE frame so the replayer indexes the same batch. One process can host
 several clients as threads sharing the one row update; each thread trains
-its own copy of its dispatch row. Fault-scenario clients run alone so
-crashing or delaying them is isolated.
+its own copy of its dispatch row. A row crosses each hop once: the
+dispatch's bytes are copied into the thread's pinned base row and from
+there to the device, the trained row comes back into a pinned row, and the
+UPDATE is written from it without a join (``wire.send_frame``).
+Fault-scenario clients run alone so crashing or delaying them is
+isolated.
 
 Resilience (DESIGN.md §16): every connect goes through
 `transport.retry.connect_with_retry` — exponential backoff with
@@ -112,18 +116,26 @@ class _Conn:
         self._parser = wire.FrameParser()
         self._send_lock = threading.Lock()
         self._frames: list = []
+        self._chunk = bytearray(wire.RECV_CHUNK)
 
-    def send(self, frame: bytes) -> None:
+    def send(self, frame) -> None:
+        """One frame, whole or as ``wire.frame_parts``."""
         with self._send_lock:
-            self.sock.sendall(frame)
+            self.wire.send_frame(self.sock, frame)
+
+    def _read(self) -> int:
+        """One receive into the reused chunk, fed to the parser -> bytes
+        read (0 at EOF)."""
+        n = self.sock.recv_into(self._chunk)
+        if n:
+            self._frames.extend(self._parser.feed(memoryview(self._chunk)[:n]))
+        return n
 
     def recv_frame(self):
         """Next (ftype, payload); None on EOF or a CRC-poisoned stream."""
         while not self._frames:
-            data = self.sock.recv(1 << 16)
-            if not data:
+            if not self._read():
                 return None
-            self._frames.extend(self._parser.feed(data))
             if self._parser.crc_errors:
                 # the server's bytes arrived damaged: treat the whole
                 # connection as poisoned and resync via reconnect
@@ -137,9 +149,7 @@ class _Conn:
         `recv_frame`."""
         gone = False
         while not gone and select.select([self.sock], [], [], 0)[0]:
-            data = self.sock.recv(1 << 16)
-            self._frames.extend(self._parser.feed(data))
-            gone = not data or self._parser.crc_errors > 0
+            gone = not self._read() or self._parser.crc_errors > 0
         if any(t == self.wire.BYE for t, _ in self._frames):
             return "bye"  # the server's BYE is followed by its close
         return "eof" if gone else None
@@ -178,6 +188,21 @@ def _session(client: int, args, meta: dict, cfg, update, crash_budget,
     hb = args.heartbeat_s or float(meta.get("heartbeat_s", 0.2))
     conn = _Conn(args.host, args.port, client, wire, args, plan)
     stop = threading.Event()
+    pin = torch.device(dev).type == "cuda"
+    rows: dict[str, torch.Tensor] = {}
+
+    def staged(name: str, src) -> torch.Tensor:
+        """``src`` (an array or tensor) copied into this session's pinned
+        f32 row ``name``, allocated once."""
+        if name not in rows or rows[name].numel() != len(src):
+            rows[name] = torch.empty(len(src), dtype=torch.float32, pin_memory=pin)
+        out = rows[name]
+        if isinstance(src, torch.Tensor):
+            out.copy_(src)
+        else:
+            np.copyto(out.numpy(), src)
+        return out
+
     try:
         conn.send(wire.pack_hello(client))
         threading.Thread(
@@ -196,11 +221,11 @@ def _session(client: int, args, meta: dict, cfg, update, crash_budget,
                 return DONE, seq
             if ftype != wire.DISPATCH:
                 continue
-            version, row_buf = wire.parse_dispatch(payload)
-            base = codec.decode_row(row_buf).astype(np.float32)
+            version, row_buf = wire.parse_dispatch(memoryview(payload))
+            base = staged("base", codec.row_view(row_buf))
             batch = rounds.to_device(replay.synth_client_batch(cfg, meta, client, seq), dev)
-            trained, loss = update(torch.from_numpy(base).to(dev), batch)
-            trained = trained.float().cpu().numpy()
+            trained, loss = update(base.to(dev), batch)
+            trained = staged("trained", trained)
             if args.train_delay:
                 time.sleep(args.train_delay)
             # a run that ended while this client trained said BYE: leave now
@@ -208,8 +233,8 @@ def _session(client: int, args, meta: dict, cfg, update, crash_budget,
             ended = conn.ended()
             if ended is not None:
                 return (DONE if ended == "bye" else RECONNECT), seq
-            buf = codec.encode_update(trained, base, wire_codec, block)
-            conn.send(wire.pack_update(client, seq, version, float(loss), buf))
+            parts = codec.update_parts(trained.numpy(), base.numpy(), wire_codec, block)
+            conn.send(wire.update_parts(client, seq, version, float(loss), *parts))
             seq += 1
             if crash_budget is not None and crash_budget.hit():
                 os._exit(CRASH_EXIT_CODE)  # mid-round crash: no BYE, no cleanup

@@ -30,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.shard_ctx import constrain
 from repro_torch.models.transformer import (_dtype, embed_inputs, ffn_block, gemma_pattern, index,
                                             is_stacked_dense, layer_window, logits_fn)
 
@@ -65,8 +66,13 @@ def _caches(cfg: ArchConfig, batch: int, max_len: int, ring: int, device,
     raise ValueError(cfg.family)
 
 
-def cache_spec(cfg: ArchConfig, batch: int, max_len: int, device=None) -> PyTree:
-    """The zero-initialized cache for ``batch`` sequences of ``max_len``."""
+def cache_spec(cfg: ArchConfig, batch: int, max_len: int, device=None,
+               abstract: bool = False) -> PyTree:
+    """The zero-initialized cache for ``batch`` sequences of ``max_len``;
+    with ``abstract`` its shapes and dtypes on the ``meta`` device, no
+    memory (the reference's ``ShapeDtypeStruct`` form, for the dry-run)."""
+    if abstract:
+        device = "meta"
     return _caches(cfg, batch, max_len, min(cfg.window, max_len), device, _dtype(cfg))
 
 
@@ -149,7 +155,7 @@ def prefill_hidden(cfg: ArchConfig, params: PyTree, batch: dict, max_len: int = 
     decode steps; windowed rings hold ``cfg.window`` slots and SSM states are
     fixed-size. The serving families' full forward: with ``max_len`` 0 its
     logits at every position are what teacher forcing holds decode to."""
-    x = embed_inputs(cfg, params, batch)
+    x = constrain(embed_inputs(cfg, params, batch))
     B, S_in = x.shape[:2]
     # the stacked dense caches take the config's dtype, the others the
     # compute dtype, as the reference's prefill returns them
@@ -157,7 +163,8 @@ def prefill_hidden(cfg: ArchConfig, params: PyTree, batch: dict, max_len: int = 
     cache = _caches(cfg, B, max(max_len, S_in), cfg.window, x.device, dt)
     if is_stacked_dense(cfg):
         for i in range(cfg.n_layers):
-            x = _dense_block_kv(cfg, index(params["layers"], i), x, cfg.window, _at(cache, i))
+            x = constrain(_dense_block_kv(cfg, index(params["layers"], i), x, cfg.window,
+                                          _at(cache, i)))
     elif cfg.local_global_period:
         ng, nt = gemma_pattern(cfg)
         for g in range(ng):
@@ -170,8 +177,8 @@ def prefill_hidden(cfg: ArchConfig, params: PyTree, batch: dict, max_len: int = 
             x = _dense_block_kv(cfg, index(params["tail"], i), x, cfg.window, _at(cache["tail"], i))
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x = _ssm_block_state(cfg, index(params["layers"], i), x, cache["ssm"][i],
-                                 cache["conv"][i])
+            x = constrain(_ssm_block_state(cfg, index(params["layers"], i), x, cache["ssm"][i],
+                                           cache["conv"][i]))
     elif cfg.family == "hybrid":
         for g in range(cfg.n_layers // cfg.shared_attn_period):
             gp = index(params["mamba_groups"], g)

@@ -42,6 +42,7 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import einsum, gold_logit, rms_norm, softmax_cross_entropy, swiglu
 from repro_torch.models.params import ParamInfo, flatten_with_paths, map_tree, unflatten
+from repro_torch.models.shard_ctx import constrain
 
 PyTree = Any
 
@@ -204,6 +205,7 @@ def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
     checkpointed under grad (:func:`remat`); the stacks are unbound outside
     the checkpoints (:func:`unstack`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x)
 
     def layer(h, a, q, window):
         h, b = dense_block(cfg, q, h, window)
@@ -222,17 +224,20 @@ def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
     if is_stacked_dense(cfg):
         for p in unstack(params["layers"]):
             x, aux = remat(layer, x, aux, p, cfg.window)
+            x = constrain(x)
     elif cfg.local_global_period:  # gemma3: period groups, then the tail
         for g in unstack(params["groups"], 2) if "groups" in params else ():
             x, aux = remat(gemma_group, x, aux, g)
+            x = constrain(x)
         for p in unstack(params["tail"]) if "tail" in params else ():
             x, aux = remat(layer, x, aux, p, cfg.window)
+            x = constrain(x)
     elif cfg.family == "ssm":
         for p in unstack(params["layers"]):
-            x = remat(lambda h, q: ssm_block(cfg, q, h), x, p)
+            x = constrain(remat(lambda h, q: ssm_block(cfg, q, h), x, p))
     elif cfg.family == "hybrid":  # each Mamba2 group, then the one shared block
         for g in unstack(params["mamba_groups"], 2):
-            x = remat(hybrid_group, x, g, params["shared"])
+            x = constrain(remat(hybrid_group, x, g, params["shared"]))
     else:
         raise ValueError(f"unsupported family {cfg.family}")
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux

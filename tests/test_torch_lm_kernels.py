@@ -80,13 +80,25 @@ def test_flash_attention_plain_matches_reference_kernel(shape, causal, window, d
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+class _ForeignDevice(torch.Tensor):
+    """A host tensor that reports a device the kernel wrappers do not serve."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_flash_attention_wrapper_counts_no_cpu_launch_and_rejects_other_devices():
     q = torch.zeros((1, 2, 64, 16))
     before = kflash.flash_attention.launches
     ops.flash_attention(q, q, q)
+    m = q.to("meta")  # the launch plans' dry-run: the output's shape, no launch
+    out = kflash.flash_attention(m, m, m)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
     assert kflash.flash_attention.launches == before
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        kflash.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    f = q.as_subclass(_ForeignDevice)
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        kflash.flash_attention(f, f, f)
     with pytest.raises(ValueError, match="impl"):
         ops.flash_attention(q, q, q, impl="pallas")
 
@@ -132,8 +144,12 @@ def test_ssd_chunk_scan_rejects_ragged_and_foreign_operands():
         kssd.ssd_chunk_scan(x, dA, Bm, Bm, chunk=8)
     with pytest.raises(ValueError, match="expected"):
         kssd.ssd_chunk_scan(x, dA[:, :4], Bm, Bm, chunk=4)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        kssd.ssd_chunk_scan(*(t.to("meta") for t in (x, dA, Bm, Bm)), chunk=4)
+    before = kssd.ssd_chunk_scan.launches
+    got = kssd.ssd_chunk_scan(*(t.to("meta") for t in (x, dA, Bm, Bm)), chunk=4)
+    assert [tuple(t.shape) for t in got] == [(1, 12, 2, 4), (1, 3, 2, 4, 3), (1, 3, 2), (1, 12, 2)]
+    assert kssd.ssd_chunk_scan.launches == before  # meta launches nothing
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        kssd.ssd_chunk_scan(*(t.as_subclass(_ForeignDevice) for t in (x, dA, Bm, Bm)), chunk=4)
 
 
 def _card():

@@ -547,8 +547,8 @@ def test_launcher_paths_of_slice_5(flags, tmp_path, monkeypatch, capsys):
 
 def test_launcher_parsers_take_the_reference_flags_and_defaults(monkeypatch):
     """Every flag of the reference launcher with its default, choices and
-    type, apart from the port's ``--device`` and ``--seed`` and the
-    reference's ``--print-plan`` (launch tooling, ROADMAP slice 8)."""
+    type, ``--print-plan`` included (the launch tooling), plus the port's
+    ``--device`` and ``--seed``."""
     import argparse
     import sys
 
@@ -574,6 +574,6 @@ def test_launcher_parsers_take_the_reference_flags_and_defaults(monkeypatch):
 
     ours, theirs = flags(train.build_parser()), flags(ref)
     assert set(ours) - set(theirs) == {"--device", "--seed"}
-    assert set(theirs) - set(ours) == {"--print-plan"}
+    assert set(theirs) - set(ours) == set()
     for k in set(ours) & set(theirs):
         assert ours[k] == theirs[k], k

@@ -146,26 +146,41 @@ def _flushed(n):
                               for e in list(server.schedule.events)) >= n
 
 
-class _HeldUploads:
-    """A TCP relay in front of the server for one worker process (its
-    ``--port`` flag points here) that holds the worker's UPDATE frames until
-    ``release(server)`` holds, then sends them in order; every other frame
-    passes at once, heartbeats included. A straggler made this way is stale
-    by the landing order, not by a wall-clock delay racing the others.
-    :meth:`hook` is ``wire_run``'s hook: it names the server to relay to."""
+class _LandingOrder:
+    """A TCP relay in front of the server for every worker process (their
+    ``--port`` flags point here) that fixes the whole landing order. It holds
+    each client's UPDATE frames, and the frames behind them, and lets one
+    upload through at a time: the next once the server has recorded the
+    landing of the last, and every client that owes an upload (it is not
+    staged in the engine's buffer and its ``budgets`` entry, the worker's
+    ``--max-updates``, is not spent) has one held. Of the held uploads that
+    ``gate(client, n, server)`` admits (n: the client's uploads through so
+    far), the one of the client with the fewest through goes first, the
+    lower id breaking ties. Every staleness, drop and flush, and so every
+    rounding of a quantized delta, is then a function of the budgets and
+    the gate, not of the workers' timing. Heartbeats pass at once, and
+    every other frame once no upload of its connection is held. :meth:`hook` is ``wire_run``'s hook: it names the
+    server to relay to."""
 
-    def __init__(self, release):
-        self.release, self.server = release, None
-        self.ready = threading.Event()
+    def __init__(self, budgets: dict, gate):
+        self.budgets, self.gate, self.server = dict(budgets), gate, None
+        self.ready, self.closed = threading.Event(), threading.Event()
+        self.lock = threading.Lock()
+        self.conns = []  # per connection: {"client", "up", "queue", "eof"}
+        self.seen = {c: 0 for c in budgets}  # UPDATEs read from each client
+        self.through = {c: 0 for c in budgets}  # UPDATEs let through
+        self.released = 0
         self.listener = socket.create_server(("127.0.0.1", 0))
         self.port = self.listener.getsockname()[1]
         threading.Thread(target=self._accept, daemon=True).start()
+        threading.Thread(target=self._release, daemon=True).start()
 
     def hook(self, server, workers):
         self.server = server
         self.ready.set()
 
     def close(self):
+        self.closed.set()
         self.listener.close()
 
     def _accept(self):
@@ -180,49 +195,83 @@ class _HeldUploads:
             except OSError:  # the server already stopped: the worker's retry ends it
                 down.close()
                 continue
+            conn = {"client": None, "up": up, "queue": [], "eof": False}
+            with self.lock:
+                self.conns.append(conn)
             threading.Thread(target=self._pipe, args=(up, down), daemon=True).start()
-            threading.Thread(target=self._uploads, args=(down, up), daemon=True).start()
+            threading.Thread(target=self._read, args=(conn, down), daemon=True).start()
 
     @staticmethod
     def _pipe(src, dst):
+        """The server's frames to the worker, as they come."""
         try:
             while data := src.recv(1 << 16):
                 dst.sendall(data)
         except OSError:
             pass
         finally:
-            for sock in (src, dst):
-                sock.close()
+            dst.close()
 
-    def _uploads(self, down, up):
-        lock, held = threading.Lock(), []
-
-        def send_held():
-            deadline = time.monotonic() + DEADLINE_S
-            while not self.release(self.server) and time.monotonic() < deadline:
-                time.sleep(0.02)
-            with lock:
-                for frame in held:
-                    up.sendall(frame)
-                held.clear()
-
+    def _read(self, conn, down):
         parser = wire.FrameParser()
         try:
             while data := down.recv(1 << 16):
                 for ftype, payload in parser.feed(data):
                     frame = wire.encode_frame(ftype, payload)
-                    with lock:
-                        if ftype == wire.UPDATE and (held or not self.release(self.server)):
-                            held.append(frame)
-                            if len(held) == 1:
-                                threading.Thread(target=send_held, daemon=True).start()
+                    with self.lock:
+                        if ftype == wire.HELLO:
+                            conn["client"] = wire.parse_hello(payload)
+                        if ftype == wire.UPDATE:
+                            self.seen[conn["client"]] += 1
+                        if ftype == wire.UPDATE or (conn["queue"] and ftype != wire.HEARTBEAT):
+                            conn["queue"].append((ftype, frame))
                         else:
-                            up.sendall(frame)
+                            conn["up"].sendall(frame)
         except OSError:
             pass
         finally:
-            for sock in (down, up):
-                sock.close()
+            down.close()
+            with self.lock:
+                conn["eof"] = True
+
+    def _landed(self) -> int:
+        return sum(e.kind == "land" for e in list(self.server.schedule.events))
+
+    def _release(self):
+        self.ready.wait(DEADLINE_S)
+        while not self.closed.is_set():
+            time.sleep(0.01)
+            with self.lock:
+                self._step()
+
+    def _step(self):
+        for conn in self.conns:  # frames queued behind an upload let through
+            while conn["queue"] and conn["queue"][0][0] != wire.UPDATE:
+                self._send(conn, conn["queue"].pop(0)[1])
+            if conn["eof"] and not conn["queue"] and conn["up"] is not None:
+                conn["up"].close()
+                conn["up"] = None
+        if self._landed() < self.released:
+            return
+        staged = set(self.server.engine.staged())
+        held = {conn["client"]: conn for conn in self.conns if conn["queue"]}
+        owing = [c for c in self.budgets if c not in staged and self.seen[c] < self.budgets[c]]
+        if any(c not in held for c in owing):
+            return
+        ready = [c for c in held if self.gate(c, self.through[c], self.server)]
+        if not ready:
+            return
+        c = min(ready, key=lambda c: (self.through[c], c))
+        self._send(held[c], held[c]["queue"].pop(0)[1])
+        self.through[c] += 1
+        self.released += 1
+
+    @staticmethod
+    def _send(conn, frame):
+        try:
+            conn["up"].sendall(frame)
+        except (OSError, AttributeError):
+            pass  # the server already stopped
 
 
 # ------------------------------ units ---------------------------------------
@@ -417,31 +466,32 @@ def test_bounded_queue_applies_backpressure():
 @pytest.mark.parametrize("wire_codec", ["dense", "quant8", "quant4"])
 def test_wire_run_replays_deterministically(wire_codec, tmp_path):
     """C = 4 workers over TCP, 5 flushes, a straggler dropped at the
-    staleness gate by the landing order (:class:`_HeldUploads`). The
+    staleness gate by the landing order (:class:`_LandingOrder`). The
     recorded schedule replays through the port's engine to the run's
     global (bitwise dense, 1e-5 otherwise) and, from the port's initial
     state, through the reference's engine (module docstring's bounds)."""
     meta = _meta(n_clients=4, buffer_size=2, max_staleness=1, wire_codec=wire_codec,
                  quant_block=512)
     # the straggler (client 3) says HELLO first, so it trains on version 0;
-    # clients 0-2 start once that dispatch is recorded, and the straggler's
-    # first upload is held until their landings have made 2 flushes: it
-    # lands 2 versions stale and is dropped. 5 flushes take 10 fresh
-    # landings; the budgets allow 4 more uploads, since the three threads of
-    # clients 0-2 may drop a landing of their own
-    held = _HeldUploads(_flushed(2))
+    # clients 0-2 start once that dispatch is recorded. Every upload goes
+    # through one relay that fixes the landing order (:class:`_LandingOrder`):
+    # the straggler's first upload waits until 2 flushes are recorded, so it
+    # lands 2 versions stale and is dropped, and every other landing follows
+    # from the budgets alone
+    budgets = {0: 4, 1: 4, 2: 4, 3: 3}
+    order = _LandingOrder(budgets, lambda c, n, server: c != 3 or n or _flushed(2)(server))
     spawn = _spawn_when(_dispatched(3), meta, tmp_path / "meta.json", [0, 1, 2],
-                        ["--max-updates", "4"])
+                        ["--max-updates", "4", "--port", str(order.port)])
 
     def hooks(server, workers):
-        held.hook(server, workers)
+        order.hook(server, workers)
         spawn(server, workers)
 
     try:
         res = _wire(meta, 5, hooks=hooks, worker_groups=[
-            {"client_ids": [3], "extra": ["--port", str(held.port), "--max-updates", "3"]}])
+            {"client_ids": [3], "extra": ["--port", str(order.port), "--max-updates", "3"]}])
     finally:
-        held.close()
+        order.close()
     assert res.stats.flushes == 5 and len(res.history) == 5
     assert res.dropped_total >= 1 and res.schedule.n_dropped == res.dropped_total
     assert res.stats.protocol_errors == 0
