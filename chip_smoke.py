@@ -287,6 +287,31 @@ recorded every launch made; where no trace does, the kernels line says
    both) and K10 at zamba2's N 64 (one group of 9 Mamba2 layers and the
    shared block). (d) ``examples/train_100m`` at its defaults for 3 rounds:
    the reference's JSON keys, K1 once a round, K9 twice a layer a step.
+17. The launch tooling: every arch's ``--print-plan``, three dry-runs on
+   the meta device and the 1 x 1 plan of phase 10d's round against that
+   round on the card.
+18. The sharded model, on two rank processes sharing the card over a gloo
+   group (``core/collectives.py`` stages the card's tensors through pinned
+   host memory; NCCL refuses two ranks on one device), from a
+   ``FileStore``; they load the kernels the parent built. (a) fedyolov3 at
+   full width, img 416, batch 2, sgd 0.05, 2 rounds a case: dense, eq6
+   (top 4) and quant8 on a (1, 2) mesh at C 2 (K1 once a round on the
+   rank's column block; quant8 gathers its columns and runs K5a on whole
+   rows), fedsgd at C 2 and the buffered eq6 engine at C 4 (a flush every
+   2, alpha 0.5) on a (2, 1) mesh; rank 0 runs each meshless from the same
+   seed, as its twin (``microbatches`` 2: the parts the ranks take) and as
+   the plain round, and holds the gathered result to both at phase 10c's
+   bounds (rtol 1e-4 / atol 1e-5; quant8: a gradient that differs by
+   rounding moves up to 1e-4 of the values across a half step, each by at
+   most 1e-3), eq6's upload choices and the engine's records equal.
+   (b) qwen3-1.7b at its widths cut to 2 layers (N 411,838,976), one eq6
+   adamw 3e-3 round at C 2, one step at 2 x 128 (1 x 128 a model rank) on
+   a (1, 2) mesh: each rank's state bytes along the flat dim exactly half
+   the meshless state's, beside the dry-run's per-device bytes of the same
+   plan; the peak, the round's ms, the host collectives' seconds; the loss
+   against rank 0's meshless run at rtol 1e-5. (c) In this process, while
+   the ranks run: the launcher's 1 x 1 NCCL mesh, one fedsgd round and one
+   buffered flush bitwise equal to meshless.
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -3847,6 +3872,324 @@ def phase17(dev, card: str) -> None:
     phase17c(dev, card)
 
 
+# phase 18: the sharded model. 18a fedyolov3 at full width, 2 rounds of
+# sgd 0.05 a case; 18b qwen3-1.7b at its widths cut to 2 layers, one adamw
+# eq6 round at 2 x 128; each on 2 ranks sharing the card over gloo
+SHARD_IMG, SHARD_BATCH, SHARD_ROUNDS, SHARD_LR, SHARD_TOPN = 416, 2, 2, 0.05, 4
+SHARD_MODES = ["dense", "eq6", "quant8"]
+SHARD_ENGINE = dict(n_clients=4, mode="async", buffer_size=2, staleness_alpha=0.5)
+SHARD_FLUSHES = 2
+SHARD_LM = dict(layers=2, clients=2, batch=2, seq=128, lr=3e-3, topn=2)
+SHARD_TIMEOUT_S = 300
+
+
+def shard_fed(aggregation: str, **kw):
+    from repro_torch.core.rounds import FedConfig
+
+    base = dict(n_clients=2, local_steps=1, aggregation=aggregation, topn=SHARD_TOPN,
+                client_axis="data", data_axis=None, agg_impl="kernel")
+    return FedConfig(**{**base, **kw})
+
+
+def within_10c(got: torch.Tensor, want: torch.Tensor, flips: bool = False) -> tuple[bool, str]:
+    """Phase 10c's sgd bound, rtol 1e-4 / atol 1e-5 -> (held, what was
+    seen). ``flips``: a rounding mode, where a gradient that differs by
+    rounding moves a value across a half step: up to 1e-4 of the elements
+    may be off, each by at most 1e-3 (the CPU tests' rule,
+    tests/test_torch_sharded.py)."""
+    gap = (got.float() - want.float()).abs()
+    off = gap > 1e-5 + 1e-4 * want.float().abs()
+    n_off, worst = int(off.sum()), float(gap.max())
+    held = n_off <= (1e-4 * gap.numel() if flips else 0) and (not flips or worst <= 1e-3)
+    return held, f"max gap {worst:.3e}, {n_off} of {gap.numel()} off rtol 1e-4 / atol 1e-5"
+
+
+def synced_ms(fn) -> tuple[object, float]:
+    """``fn()`` and its wall ms, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def say(msg: str, card: str) -> None:
+    print(f"{msg}  [{card}]", flush=True)
+
+
+def shard_rounds(cfg, fed, opt, batches, w, dev, mesh) -> dict:
+    """``len(batches)`` rounds from the seed's state, on ``mesh`` or none ->
+    the whole params, the last loss, ms per round, eq6's upload choices,
+    the K1 and K5a launches and the host collectives' seconds."""
+    from repro_torch.core import collectives, rounds
+    from repro_torch.core import compression as comp
+    from repro_torch.kernels import pack
+
+    state = rounds.make_state(cfg, fed, opt, rounds.seed_generator(cfg, 0, dev), dev, mesh=mesh)
+    fr = rounds.build_fed_round(cfg, fed, opt, mesh)
+    pack.packed_bucket_reduce.launches = pack.quantize_rows.launches = 0
+    collectives.reset_stats()
+    ms, choices = [], []
+    for b in batches:
+        prev = state["agg"].get("prev_sums")
+        (state, met), t = synced_ms(lambda: fr(state, b, w))
+        ms.append(t)
+        if prev is not None:
+            choices.append(comp.topn_mask(comp.contribution_scores(prev, state["agg"]["prev_sums"]),
+                                          fed.topn))
+    params = state["params"]
+    if mesh is not None and state["params"].dim() == 2:
+        params = collectives.all_gather(params, mesh, "model", axis=-1)
+    return {"params": params, "loss": float(met["loss"]), "ms": ms, "choices": choices,
+            "k1": pack.packed_bucket_reduce.launches, "k5a": pack.quantize_rows.launches,
+            "coll_s": collectives.stats["seconds"], "coll_calls": collectives.stats["calls"]}
+
+
+def meshless_against(tag: str, got: dict, cfg, fed, opt, batches, w, dev, card: str,
+                     flips: bool = False) -> None:
+    """Rank 0's meshless runs of a sharded case from the same state: its
+    twin (``microbatches`` 2, the parts the 2 ranks take) and the plain
+    round (``microbatches`` 1), each held at phase 10c's bounds (``flips``:
+    a rounding mode's), with equal eq6 upload choices. Neither is bitwise
+    on the card: the clip's norm sums the blocks' parts, and a rank's
+    convolutions run in another process."""
+    for name, f in (("twin", dataclasses.replace(fed, microbatches=2)), ("meshless", fed)):
+        want = shard_rounds(cfg, f, opt, batches, w, dev, None)
+        held, seen = within_10c(got["params"], want["params"], flips)
+        check(held and abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+              f"{tag}: sharded against the {name} run, {seen}, loss {got['loss']} {want['loss']}")
+        check(all(torch.equal(a, b) for a, b in zip(got["choices"], want["choices"])),
+              f"{tag}: upload choices differ from the {name} run's")
+        say(f"phase{tag} against the {name} run: {seen}, loss {want['loss']!r}, ms per round "
+            f"{[round(t, 1) for t in want['ms']]}"
+            + (f", upload choices equal ({int(sum(c.sum() for c in got['choices']))} buckets "
+               f"uploaded)" if got["choices"] else ""), card)
+        del want
+
+
+def phase18a(rank: int, dev, card: str) -> None:
+    """fedyolov3 at full width, 2 rounds a case from the seed's state on both
+    ranks: dense, eq6 and quant8 on a (1, 2) mesh (C 2), fedsgd (C 2) and the
+    buffered engine (eq6, C 4, a flush every 2) on a (2, 1) mesh; rank 0
+    runs each meshless and holds the gathered result at phase 10c's bounds,
+    eq6's upload choices equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import rounds
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import pack
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import map_tree
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    m12, m21 = make_host_mesh(1, 2, "cuda"), make_host_mesh(2, 1, "cuda")
+    opt = sgd(SHARD_LR)
+    gen, _, _ = detection_suite(cfg, shard_fed("dense", n_clients=4), batch=SHARD_BATCH,
+                                img_size=SHARD_IMG, pool_scenes=16)
+    batches4 = [rounds.to_device(next(gen), dev) for _ in range(max(SHARD_ROUNDS, SHARD_FLUSHES))]
+    batches = [map_tree(lambda x: x[:2], b) for b in batches4[:SHARD_ROUNDS]]
+    w = rounds.uniform_weights(2).to(dev)
+    for mode in SHARD_MODES:
+        fed = shard_fed(mode)
+        got = shard_rounds(cfg, fed, opt, batches, w, dev, m12)
+        kernel = "K5a" if mode == "quant8" else "K1"
+        launches = got["k5a"] if mode == "quant8" else got["k1"]
+        check(launches == SHARD_ROUNDS, f"18a {mode}: {launches} {kernel} launches on rank {rank}")
+        say(f"phase18a {mode} (1, 2) rank {rank}: {kernel} {launches} launches on the rank's "
+            f"{'whole rows' if mode == 'quant8' else 'column block'}, ms per round "
+            f"{[round(t, 1) for t in got['ms']]}, host collectives {got['coll_calls']} calls "
+            f"{got['coll_s']:.3f} s, loss {got['loss']!r}", card)
+        if rank == 0:
+            meshless_against(f"18a {mode}", got, cfg, fed, opt, batches, w, dev, card,
+                             flips=mode == "quant8")
+        del got
+    # fedsgd: the client axis as data-parallel ranks of one shared copy
+    fed = shard_fed("fedsgd")
+    merged = [rounds.merge_clients(b) for b in batches]
+    got = shard_rounds(cfg, fed, opt, merged, w, dev, m21)
+    say(f"phase18a fedsgd (2, 1) rank {rank}: ms per round {[round(t, 1) for t in got['ms']]}, "
+        f"host collectives {got['coll_calls']} calls {got['coll_s']:.3f} s", card)
+    if rank == 0:
+        meshless_against("18a fedsgd", got, cfg, fed, opt, merged, w, dev, card)
+    # the buffered engine: each rank trains the staged rows it owns
+    fed = shard_fed("eq6", **SHARD_ENGINE)
+    recs = {}
+    for mesh in (m21, None) if rank == 0 else (m21,):
+        eng = ae.BufferedAsyncEngine(cfg, fed, opt, seed=0, mesh=mesh, device=dev)
+        pack.packed_bucket_reduce.launches = 0
+        out, ms = [], []
+        for b in batches4[:SHARD_FLUSHES]:
+            rec, t = synced_ms(lambda: eng.step_round(b))
+            out.append((rec.participants, rec.staleness, rec.dropped, rec.sim_time, rec.weights))
+            ms.append(t)
+        recs[mesh is None] = (out, eng.global_packed_row(), ms, pack.packed_bucket_reduce.launches)
+    out, g, ms, k1 = recs[False]
+    check(k1 == SHARD_FLUSHES, f"18a buffered: {k1} K1 launches on rank {rank}")
+    say(f"phase18a buffered eq6 engine (2, 1) rank {rank}: K1 {k1} launches, ms per flush "
+        f"{[round(t, 1) for t in ms]}, staged {[r[0] for r in out]}", card)
+    if rank == 0:
+        want, wg, wms, _ = recs[True]
+        held, seen = within_10c(g, wg)
+        check(out == want and held, f"18a buffered: records {out} != {want} or {seen}")
+        say(f"phase18a buffered: records equal (staleness {[r[1] for r in out]}, sim seconds "
+            f"{[round(r[3], 3) for r in out]}), global against meshless {seen}, ms per flush "
+            f"meshless {[round(t, 1) for t in wms]}", card)
+
+
+def phase18b(rank: int, dev, card: str) -> None:
+    """qwen3-1.7b at its widths cut to 2 layers, one eq6 adamw round (C 2,
+    one step at 2 x 128, 1 x 128 a model rank) on a (1, 2) mesh: each
+    rank's state bytes against the meshless state's and the dry-run's
+    per-device bytes of the plan, the peak, the round's ms, the host
+    collectives' seconds; rank 0 holds the loss against the meshless run's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives, rounds
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+
+    lm = SHARD_LM
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=lm["layers"])
+    fed = shard_fed("eq6", n_clients=lm["clients"], topn=lm["topn"])
+    opt = adamw(lm["lr"])
+    mesh = make_host_mesh(1, 2, "cuda")
+    sizes = {"data": 1, "model": 2}
+    batch = rounds.to_device(next(fed_batches(cfg, fed, batch=lm["batch"], seq=lm["seq"])), dev)
+    w = rounds.uniform_weights(lm["clients"]).to(dev)
+    meta = rounds.state_template(cfg, fed, opt, torch.float32)
+    whole = rounds.state_bytes(meta)
+    plan = specs.per_device_bytes(meta, rounds.state_pspecs(cfg, fed, opt, axis_sizes=sizes), sizes)
+    n = rounds.make_aggregator(cfg, fed).ctx.spec.n_total
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = rounds.make_state(cfg, fed, opt, rounds.seed_generator(cfg, 0, dev), dev, mesh=mesh)
+    mine = rounds.state_bytes(state)
+    check(mine["clients"] * 2 == whole["clients"] and mine["server"] * 2 == whole["server"]
+          and mine["other"] == whole["other"],
+          f"18b rank {rank}: state bytes {mine} against the meshless {whole}")
+    fr = rounds.build_fed_round(cfg, fed, opt, mesh)
+    collectives.reset_stats()
+    (state, met), ms = synced_ms(lambda: fr(state, batch, w))
+    loss = float(met["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase18b qwen3-1.7b (2 layers, N {n}) eq6 adamw (1, 2) rank {rank}: state "
+        f"{mine['clients'] + mine['server']} B of the flat dim (meshless {whole['clients'] + whole['server']}"
+        f" B, / 2 exactly) plus {mine['other']} B whole (per-bucket sums, step counts); the "
+        f"dry-run's per-device bytes of the plan {plan} B; peak {peak / 2 ** 30:.3f} GiB; round "
+        f"{ms:.1f} ms, host collectives {collectives.stats['calls']} calls "
+        f"{collectives.stats['bytes'] / 1e9:.3f} GB {collectives.stats['seconds']:.3f} s (gloo "
+        f"through pinned host memory, not NVLink); loss {loss!r}", card)
+    check(np.isfinite(loss), f"18b rank {rank}: loss {loss}")
+    del state, met
+    torch.cuda.empty_cache()
+    if rank == 0:
+        state = rounds.make_state(cfg, fed, opt, rounds.seed_generator(cfg, 0, dev), dev)
+        check(rounds.state_bytes(state) == whole, "18b: the meshless state's bytes != its template's")
+        (state, met), wms = synced_ms(lambda: rounds.build_fed_round(cfg, fed, opt)(state, batch, w))
+        want = float(met["loss"])
+        check(abs(loss - want) <= 1e-5 * abs(want), f"18b: loss {loss} against meshless {want}")
+        say(f"phase18b meshless on rank 0: round {wms:.1f} ms, loss {want!r} (sharded within rtol "
+            f"1e-5: {abs(loss - want) / abs(want):.3e})", card)
+        del state, met
+        torch.cuda.empty_cache()
+
+
+def phase18_rank(rank: int, tmp: str, card: str) -> None:
+    """One of phase 18's two ranks on ``cuda:0``: a gloo group from a
+    ``FileStore`` in ``tmp``, the kernels the parent built, 18a and 18b."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import device as D
+    from repro_torch.kernels import _build
+
+    dev = D.resolve("cuda")
+    torch.cuda.set_device(0)  # both ranks on the one card
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", 2), rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    t0 = time.perf_counter()
+    _build.library()  # built by the parent; a load under the build's file lock
+    say(f"phase18 rank {rank}: {dist.get_backend_config()} group, kernels loaded in "
+        f"{time.perf_counter() - t0:.2f} s", card)
+    phase18a(rank, dev, card)
+    phase18b(rank, dev, card)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase18c(dev, card: str) -> None:
+    """The launcher's 1 x 1 NCCL client mesh (``launch/train.py::client_mesh``)
+    through the sharded code: one fedsgd round and one buffered flush of
+    fedyolov3 at full width, bitwise against the meshless ones."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import collectives, rounds
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    mesh = train.client_mesh(dev)
+    opt = sgd(SHARD_LR)
+    gen, _, _ = detection_suite(cfg, shard_fed("dense", n_clients=4), batch=SHARD_BATCH,
+                                img_size=SHARD_IMG, pool_scenes=16)
+    b4 = rounds.to_device(next(gen), dev)
+    merged = rounds.merge_clients(b4)
+    fed = shard_fed("fedsgd", n_clients=4)
+    out = []
+    for m in (mesh, None):
+        got = shard_rounds(cfg, fed, opt, [merged], rounds.uniform_weights(4).to(dev), dev, m)
+        out.append((got["params"], got["loss"]))
+    check(same_bits(out[0][0], out[1][0]) and out[0][1] == out[1][1],
+          "18c: fedsgd on the 1 x 1 NCCL mesh != meshless")
+    fed = shard_fed("eq6", **SHARD_ENGINE)
+    rows = []
+    for m in (mesh, None):
+        eng = ae.BufferedAsyncEngine(cfg, fed, opt, seed=0, mesh=m, device=dev)
+        rec = eng.step_round(b4)
+        rows.append((eng.state["params"].clone(), eng.global_packed_row(), rec.loss))
+    check(same_bits(rows[0][0], rows[1][0]) and same_bits(rows[0][1], rows[1][1])
+          and rows[0][2] == rows[1][2], "18c: a buffered flush on the 1 x 1 NCCL mesh != meshless")
+    say(f"phase18c the launcher's 1 x 1 mesh ({collectives.backend(mesh.get_group('data'), dev)} "
+        f"for {dev.type} tensors): one fedsgd round and one buffered eq6 flush of fedyolov3 at "
+        f"{SHARD_IMG} bitwise equal to meshless", card)
+
+
+def phase18(dev, card: str) -> None:
+    """18a and 18b on two rank processes sharing the card; 18c here while
+    they run (its checks are bitwise, not timed)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks need what earlier phases cached
+    tmp = Path(tempfile.mkdtemp(prefix="phase18_"))
+    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase18-rank",
+                               str(r), str(tmp), card], stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        phase18c(dev, card)
+        for p in procs:
+            p.wait(timeout=SHARD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            p.kill()
+        out = []
+        for log in logs:
+            log.seek(0)
+            out.append(log.read())
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, (p, log) in enumerate(zip(procs, out)):
+        print(log, end="", flush=True)
+        check(p.returncode == 0, f"phase18 rank {r} exited {p.returncode}")
+    say(f"phase18 {time.perf_counter() - t0:.1f} s", card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -4086,6 +4429,10 @@ def main() -> None:
     phase17(dev, card)
     print(f"phase17 {time.perf_counter() - t17:.1f} s  [{card}]", flush=True)
 
+    # ---- phase 18: the sharded model ----------------------------------------
+    mark("phase 18")
+    phase18(dev, card)
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -4183,4 +4530,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase18-rank"]:  # one of phase 18's rank processes
+        phase18_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -8,7 +8,7 @@ aggregation name to its strategy class; ``names()`` lists what is
 available.
 """
 from repro_torch.core.aggregators.base import (
-    AggContext, Aggregator, gather_clients, get, names, register,
+    FLAT_KEYS, ROW_KEYS, AggContext, Aggregator, gather_clients, get, map_state, names, register,
 )
 from repro_torch.core.aggregators import (  # noqa: F401,E402 (registration)
     basic, eq6, hier, lowbit, quant, robust, secure, server_opt, sparse,
@@ -16,10 +16,13 @@ from repro_torch.core.aggregators import (  # noqa: F401,E402 (registration)
 from repro_torch.core.aggregators.basic import static_layer_schedule
 
 __all__ = [
+    "FLAT_KEYS",
+    "ROW_KEYS",
     "AggContext",
     "Aggregator",
     "gather_clients",
     "get",
+    "map_state",
     "names",
     "register",
     "static_layer_schedule",

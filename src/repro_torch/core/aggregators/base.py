@@ -28,6 +28,22 @@ gathered int8 payload, hier's shard-local groups) gets the rank's own
 into them. Every other aggregator gets the whole (C, N) buffer, all-gathered
 by the round, and runs unchanged on every rank.
 
+Model axis (the mesh's ``"model"`` dim with M > 1 ranks dividing N_total,
+``AggContext.cols`` the rank's block of the flat dim): a column-local
+aggregator (``local_cols = True``: dense, static_topn, eq6, hier over a
+column-local base, trimmed_mean, fedavgm, fedadam) gets the rank's
+(rows, N_total / M) block and aggregates it, K1 on the block's bucket ids
+(eq6 sums its per-bucket layer sums over the model axis first, so every
+rank makes the same upload choice). Every other aggregator (quant8 and
+quant4, whose scale blocks may cross a block edge, secure, whose masks
+span the row, topk_ef, whose top-k is the row's) gets whole rows, gathered
+over the model axis by the round, and the round keeps its block of what
+comes out. Cross-round state follows the buffer (:func:`map_state`): the
+leaves along the flat dim (``FLAT_KEYS``) hold the rank's column block,
+and the client-stacked ones (``ROW_KEYS``) its rows as well.
+
+Every collective goes through ``core.collectives``.
+
 Cross-round state (a dispatched ``base`` row, error-feedback rows, server
 optimizer moments) never aliases the round buffer: the next round's local
 steps rewrite that buffer in place, so every row taken from it is a copy.
@@ -39,10 +55,33 @@ from typing import Any
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import collectives, packing
 from repro_torch.models.params import Spec, map_tree
 
 PyTree = Any
+
+# state leaves laid along the flat dim (their last dim is the row's), by key
+FLAT_KEYS = frozenset({"base", "global", "ef", "mu", "m", "v"})
+# the flat leaves with one row per client
+ROW_KEYS = frozenset({"ef"})
+
+
+def map_state(state: PyTree, cols=None, rows=None) -> PyTree:
+    """A copy of an aggregator state with ``cols(t)`` applied to every
+    tensor leaf under a key of ``FLAT_KEYS`` and ``rows(t)`` (first) to
+    those under ``ROW_KEYS``; nested dicts recurse, other leaves pass."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out[k] = map_state(v, cols, rows)
+            continue
+        if isinstance(v, torch.Tensor):
+            if rows is not None and k in ROW_KEYS:
+                v = rows(v)
+            if cols is not None and k in FLAT_KEYS:
+                v = cols(v)
+        out[k] = v
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +93,8 @@ class AggContext:
     template: PyTree  # ParamInfo tree
     spec: packing.PackSpec
     mesh: Any = None  # torch.distributed DeviceMesh (the client axis) or None
+    cols: slice | None = None  # the flat dim's block of this rank (None: whole)
+    cols_mesh: Any = None  # the mesh whose "model" dim holds the other blocks
 
 
 class Aggregator:
@@ -62,6 +103,8 @@ class Aggregator:
     name: str = ""
     stacked: bool = True  # False -> fedsgd topology: one shared model copy
     local_rows: bool = False  # True -> aggregate takes the rank's own rows under a mesh
+    local_cols: bool = False  # True -> aggregate takes the rank's column block
+    row_state: bool = True  # False -> the ROW_KEYS state is group-level, whole on every rank
 
     def __init__(self, ctx: AggContext):
         self.ctx = ctx
@@ -83,13 +126,25 @@ class Aggregator:
         mask] -> (packed', agg_state'), packed' written into ``packed``."""
         raise NotImplementedError
 
+    def state_block(self, state: PyTree, rows: slice | None, cols: slice | None) -> PyTree:
+        """The rank's copy of a whole state: ``cols`` of its flat leaves and
+        ``rows`` of its client-stacked ones (None: that dim stays whole)."""
+        rows = rows if self.row_state else None
+        return map_state(state, cols=None if cols is None else lambda t: t[..., cols].clone(),
+                         rows=None if rows is None else lambda t: t[rows].clone())
+
     # -- shared helpers ------------------------------------------------------
+    @property
+    def _cols(self) -> slice | None:
+        """The block of the flat dim ``aggregate`` receives (None: whole)."""
+        return self.ctx.cols if self.local_cols else None
+
     def _mean(self, packed: torch.Tensor, wmask: torch.Tensor,
               mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """One masked bucket-weighted reduction (plain torch or K1) ->
         (global (N,), den (B,) per-bucket denominator)."""
         return packing.masked_bucket_mean(
-            packed, wmask, self.ctx.spec, mask, impl=self.ctx.fed.agg_impl
+            packed, wmask, self.ctx.spec, mask, impl=self.ctx.fed.agg_impl, cols=self._cols
         )
 
     def _wmean_full(self, packed: torch.Tensor, weights: torch.Tensor,
@@ -120,7 +175,7 @@ class Aggregator:
                            packed: torch.Tensor) -> torch.Tensor:
         """Write ``global_`` into every row where some client uploaded the
         bucket (den > 0); elsewhere each client keeps its local values."""
-        up = packing.expand_bucket_vec(self.ctx.spec, den_b > 0)
+        up = packing.expand_bucket_vec(self.ctx.spec, den_b > 0, self._cols)
         return torch.where(up[None, :], global_.to(packed.dtype)[None, :], packed, out=packed)
 
 
@@ -133,15 +188,7 @@ def gather_clients(x: torch.Tensor, fed, mesh) -> torch.Tensor:
     """All-gather each rank's leading-dim block of ``x`` over the client
     axis, in rank order: (k, ...) -> (S k, ...), one collective (a copy on a
     1-rank group). Without a mesh, ``x`` itself."""
-    import torch.distributed as dist
-
-    if mesh is None:
-        return x
-    S = _client_shards(fed, mesh)
-    out = torch.empty((S * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    # the name torch 2.11 has; later versions keep it beside all_gather_single
-    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.get_group(fed.client_axis))
-    return out
+    return collectives.all_gather(x, mesh, fed.client_axis)
 
 
 _REGISTRY: dict[str, type[Aggregator]] = {}

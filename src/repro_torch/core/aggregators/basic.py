@@ -19,6 +19,7 @@ class Dense(Aggregator):
     """Paper Eq. 5: weighted mean of every parameter, full upload."""
 
     name = "dense"
+    local_cols = True
 
     def aggregate(self, packed, weights, agg_state, mask=None):
         g = self._wmean_full(packed, weights, mask)
@@ -31,6 +32,7 @@ class StaticTopN(Aggregator):
     aggregate; the rest keep each client's local values."""
 
     name = "static_topn"
+    local_cols = True
 
     def __init__(self, ctx):
         super().__init__(ctx)

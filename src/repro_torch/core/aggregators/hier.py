@@ -27,6 +27,10 @@ be shard-local ((C/S) % G == 0, validated at build), so every group mean
 completes without communication, and the only collective is the gather of
 the small (C/G, N) group-row operand (and its (C/G,) weights) into the
 outer reduce, which every rank runs on all C/G rows.
+
+Model axis: K6 is per coordinate, so hier takes column blocks wherever its
+base does (``local_cols``); its group-level state is whole on every rank of
+the client axis (``row_state = False``).
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ class Hier(Aggregator):
             self._impl = base_cls(dataclasses.replace(
                 ctx, fed=dataclasses.replace(fed, aggregation=base, group_size=0)))
             self.local_rows = self._impl.local_rows
+            self.local_cols = self._impl.local_cols
             return
         if self._shards > 1 and (C // self._shards) % G:
             raise ValueError(
@@ -77,10 +82,15 @@ class Hier(Aggregator):
                 f"group_size={G}"
             )
         self.local_rows = True
+        # the outer state is group-level: whole on every rank of the client axis
+        self.row_state = False
         # the outer reduce sees the C/G group rows as its clients, on every
         # rank: the gathered (C/G, N) operand is the one cross-rank merge
         outer_fed = dataclasses.replace(fed, n_clients=self.ngroups, aggregation=base, group_size=0)
         self._impl = base_cls(dataclasses.replace(ctx, fed=outer_fed, mesh=None))
+        # the inner reduce (K6) is per coordinate: hier takes column blocks
+        # where its base does
+        self.local_cols = self._impl.local_cols
 
     def init_state(self, packed0):
         if self._delegate:

@@ -23,6 +23,7 @@ from repro_torch.core.aggregators.base import Aggregator, register
 @register
 class TrimmedMean(Aggregator):
     name = "trimmed_mean"
+    local_cols = True  # a sort per coordinate
 
     def __init__(self, ctx):
         super().__init__(ctx)

@@ -18,6 +18,7 @@ from repro_torch.optim import adamw, sgd
 
 
 class _ServerOpt(Aggregator):
+    local_cols = True  # the mean and the server step are per coordinate
     def _optimizer(self):
         raise NotImplementedError
 

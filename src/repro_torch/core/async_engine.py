@@ -42,6 +42,21 @@ the current global.
 Tensors live on the engine's ``device`` and are changed in place. Every
 row that leaves an engine through ``global_packed_row()`` is a copy: the
 next flush or landing rewrites the engine's rows.
+
+The buffered and streaming engines take a client mesh (``mesh=``, as the
+sync round does; the arrival engine stays meshless, as in the reference).
+The host control plane (event heap, clock, load model, staleness, drops)
+runs identically on every rank from the same seed. A buffered rank holds
+its rows (and, under a model axis that splits the flat dim, its column
+block of each), trains the staged rows it owns, keeps in flight only its
+own idle rows, and aggregates as the sync round does
+(``rounds.aggregate_sharded``); the fresh global's block goes from the
+rank that owns it to the others by one broadcast a flush. A streaming
+rank trains the staged rows it owns and folds them into its own
+accumulator; the accumulators, weight sums and losses are summed over the
+client axis at the flush. Every rank's records equal the meshless
+engine's. ``global_packed_row()`` then gathers the whole row: every rank
+calls it together.
 """
 from __future__ import annotations
 
@@ -54,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as D
-from repro_torch.core import explorer, packing
+from repro_torch.core import aggregators, collectives, explorer, packing
 from repro_torch.core import rounds as R
 from repro_torch.core.simclock import SimClock
 from repro_torch.models import params as mp
@@ -187,37 +202,40 @@ def _stacked_aggregator(cfg, fed: R.FedConfig, mesh, aggregator):
         raise ValueError(
             f"async mode needs a client-stacked aggregator; {fed.aggregation!r} "
             "runs one shared model copy (fedsgd topology)")
-    if packing.mesh_axis_size(mesh, fed.client_axis) > 1:
-        raise NotImplementedError("an async engine over a sharded client axis is slice 8")
     return agg
 
 
 def _aggregate_staged(agg, packed: torch.Tensor, mask: np.ndarray, w_disc: np.ndarray,
-                      agg_state: PyTree) -> PyTree:
-    """The registered aggregate over ``packed`` with the discounted weights,
-    in place; the rows with ``mask == 0`` (in flight) keep their contents.
-    -> the new aggregator state."""
+                      agg_state: PyTree, own: slice = slice(None)) -> PyTree:
+    """The registered aggregate over ``packed`` (this rank's rows ``own`` of
+    the C) with the discounted weights, in place; the rank's rows with
+    ``mask == 0`` (in flight) keep their contents. -> the new aggregator
+    state."""
     dev = packed.device
-    idle = torch.from_numpy(np.flatnonzero(mask == 0)).to(dev)
-    kept = packed.index_select(0, idle)  # (C - k, N): the in-flight rows
-    _, agg_state = agg.aggregate(packed, torch.from_numpy(w_disc).to(dev), agg_state,
-                                 torch.from_numpy(mask).to(dev))
+    idle = torch.from_numpy(np.flatnonzero(mask[own] == 0)).to(dev)
+    kept = packed.index_select(0, idle)  # the rank's in-flight rows
+    _, agg_state = R.aggregate_sharded(agg, packed, torch.from_numpy(w_disc).to(dev), agg_state,
+                                       torch.from_numpy(mask).to(dev))
     packed.index_copy_(0, idle, kept)
     return agg_state
 
 
-def _build_buffered_flush(cfg, fed: R.FedConfig, optimizer, agg):
+def _build_buffered_flush(cfg, fed: R.FedConfig, optimizer, agg, mesh=None):
     """The k < C flush: the staged rows train through the sync round's
     trainer, then the staleness-weighted aggregate; the rows in flight keep
     their dispatch version. -> ``flush(state, batch, part) -> (state,
     metrics)``, ``part`` the host (C,) mask and discounted weights."""
-    local_train = R.local_training(cfg, fed, optimizer)
+    local_train = R.local_training(cfg, fed, optimizer, mesh)
+    own = packing.packed_pspec(fed.n_clients, fed.client_axis, mesh)
+    sharded = packing.mesh_axis_size(mesh, fed.client_axis) > 1
 
     def flush(state, batch, part):
         mask, w_disc = part["mask"], part["weights"]
         packed = state["params"]
-        loss = R.train_clients(local_train, packed, state["opt"], batch, mask > 0)
-        agg_state = _aggregate_staged(agg, packed, mask, w_disc, state["agg"])
+        loss = R.train_clients(local_train, packed, state["opt"], batch, mask > 0, own)
+        if sharded:
+            loss = aggregators.gather_clients(loss, fed, mesh)
+        agg_state = _aggregate_staged(agg, packed, mask, w_disc, state["agg"], own)
         out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
         return out, R.round_metrics(loss, torch.from_numpy(mask).to(packed.device))
 
@@ -254,6 +272,8 @@ class BufferedAsyncEngine:
         self.timing = timing or TimingModel()
         self.upload_s = default_upload_terms(self.timing, C, self.agg.ctx.spec.n_total, seed)
         self._mesh, self._dtype, self._seed = mesh, dtype, seed
+        self._own = packing.packed_pspec(C, fed.client_axis, mesh)
+        self._sharded = packing.mesh_axis_size(mesh, fed.client_axis) > 1
         self._init_state_and_flush()
         self.version = 0
         self.dispatch_version = np.zeros(C, np.int64)
@@ -281,16 +301,48 @@ class BufferedAsyncEngine:
             self._flush = R.build_fed_round(cfg, dataclasses.replace(fed, mode="sync"),
                                             optimizer, self._mesh)
         else:
-            self._flush = _build_buffered_flush(cfg, fed, optimizer, self.agg)
+            self._flush = _build_buffered_flush(cfg, fed, optimizer, self.agg, self._mesh)
+        if self._sharded:
+            # the rank's block of the global (every row starts as the dispatch)
+            self._global = self.state["params"][0].clone()
+
+    def set_state(self, state: PyTree) -> None:
+        """Start from ``state`` instead of the seed's (this rank's block
+        under a mesh; e.g. a state carried from the reference's by
+        ``models.convert``). Only before the first flush, while every row
+        holds the dispatch."""
+        self.state = state
+        if self._sharded:
+            self._global = state["params"][0].clone()
+
+    def _owner(self, c: int) -> int:
+        """The client-axis coordinate of the rank holding client ``c``'s row."""
+        return c // (self.fed.n_clients // packing.mesh_axis_size(self._mesh, self.fed.client_axis))
 
     def _global_view(self) -> torch.Tensor:
+        if self._sharded:
+            return self._global
         return self.state["params"][self.global_row]
+
+    def _share_global(self) -> None:
+        """After a flush over a sharded client axis: the rank that owns the
+        global's row broadcasts its block to the others."""
+        c = self.global_row
+        mine = self._own.start <= c < self._own.stop
+        g = (self.state["params"][c - self._own.start].clone() if mine
+             else torch.empty_like(self._global))
+        self._global = collectives.broadcast(g, self._mesh, self.fed.client_axis, self._owner(c))
 
     def global_packed_row(self) -> torch.Tensor:
         """A copy of the (N_total,) packed row holding the current global
         dispatch: the one pack/unpack edge ``server.global_params`` and
-        ``serving.publish_from_engine`` read through."""
-        return self._global_view().clone()
+        ``serving.publish_from_engine`` read through (under a model axis
+        that splits the flat dim, gathered from the blocks: every rank
+        calls it together)."""
+        row = self._global_view().clone()
+        if self.agg.ctx.cols is not None:
+            row = collectives.all_gather(row, self._mesh, "model")
+        return row
 
     # -- event machinery -----------------------------------------------------
 
@@ -312,8 +364,11 @@ class BufferedAsyncEngine:
         if not pending:
             return
         p = self.state["params"]
-        idx = torch.tensor(sorted(pending), dtype=torch.long, device=p.device)
-        p.index_copy_(0, idx, self._global_view().clone()[None].expand(len(pending), -1))
+        start, stop = self._own.start, self._own.stop
+        mine = [c - start for c in sorted(pending) if start <= c < stop]  # the rank's rows
+        if mine:
+            idx = torch.tensor(mine, dtype=torch.long, device=p.device)
+            p.index_copy_(0, idx, self._global_view().clone()[None].expand(len(mine), -1))
         pending.clear()
 
     def _drop(self, c: int) -> None:
@@ -384,6 +439,8 @@ class BufferedAsyncEngine:
             self.dispatch_version[c] = self.version
             self._push(c)
         self.global_row = staged[0]  # its row now holds the fresh global
+        if self._sharded:
+            self._share_global()
         return AsyncRoundRecord(
             round_idx=self.version - 1,
             loss=float(metrics["loss"]),
@@ -699,17 +756,22 @@ class StreamingAsyncEngine(BufferedAsyncEngine):
         # one global
         row0 = R.initial_row(self.agg, R.seed_generator(self.cfg, self._seed, self.device),
                              self.device, self._dtype)
-        n = self.agg.ctx.spec.n_total
+        # the rank's column block under a model axis that splits the flat dim
+        row0 = row0[:, packing.packed_cols(self.agg.ctx.spec.n_total, self._mesh)]
+        n = row0.shape[1]
         self.state = {
             "ring": row0.expand(self.ring_slots, n).contiguous(),
             "agg": {"acc": torch.zeros(n, dtype=torch.float32, device=self.device),
                     "wsum": torch.zeros((), dtype=torch.float32, device=self.device)},
             "round": 0,
         }
-        self._local_train = R.local_training(self.cfg, fed, self.optimizer)
+        self._local_train = R.local_training(self.cfg, fed, self.optimizer, self._mesh)
 
     def _global_view(self) -> torch.Tensor:
         return self.state["ring"][self.version % self.ring_slots]
+
+    def set_state(self, state: PyTree) -> None:
+        self.state = state  # the ring holds the globals
 
     # drops are version-only redispatches: the ring already holds the row
     def _drop(self, c: int) -> None:
@@ -721,23 +783,31 @@ class StreamingAsyncEngine(BufferedAsyncEngine):
     def _post_collect(self) -> None:
         pass
 
-    def _accumulate(self, chunk: list[int], w_q: np.ndarray, batch: PyTree) -> np.ndarray:
-        """Train one cohort's dispatch rows, gathered from the ring, and fold
-        their weighted sum into ``acc`` -> the cohort's losses."""
+    def _accumulate(self, chunk: list[int], w_q: np.ndarray, batch: PyTree) -> torch.Tensor:
+        """Train one cohort's dispatch rows (those this rank owns), gathered
+        from the ring, and fold their weighted sum into ``acc`` -> the
+        cohort's losses (0 for a row another rank trains)."""
         ring, acc = self.state["ring"], self.state["agg"]
+        losses = torch.zeros(len(chunk), dtype=torch.float32, device=self.device)
+        mine = [i for i, c in enumerate(chunk) if self._own.start <= c < self._own.stop]
+        if not mine:
+            return losses
+        chunk, w_q = [chunk[i] for i in mine], w_q[mine]
         slots = torch.from_numpy(self.dispatch_version[chunk] % self.ring_slots).to(self.device)
         rows = ring.index_select(0, slots)  # (Q, N): the only row materialization
-        losses = torch.zeros(len(chunk), dtype=torch.float32, device=self.device)
-        for i, c in enumerate(chunk):
-            losses[i] = self._local_train(rows[i], {}, R.to_device(
+        for i, c in zip(mine, chunk):
+            losses[i] = self._local_train(rows[mine.index(i)], {}, R.to_device(
                 mp.map_tree(lambda x: x[c], batch), self.device))
         w = torch.from_numpy(w_q).to(self.device)
         acc["acc"].add_(w @ rows.float())
         acc["wsum"].add_(w.sum())
-        return losses.cpu().numpy()
+        return losses
 
     def _finalize(self) -> None:
         ring, acc = self.state["ring"], self.state["agg"]
+        if self._sharded:  # every rank's folds -> the flush's sum
+            collectives.all_reduce(acc["acc"], self._mesh, self.fed.client_axis)
+            collectives.all_reduce(acc["wsum"], self._mesh, self.fed.client_axis)
         g = acc["acc"] / torch.clamp_min(acc["wsum"], 1e-12)
         ring[(self.version + 1) % self.ring_slots].copy_(g.to(ring.dtype))
         acc["acc"].zero_()
@@ -749,11 +819,14 @@ class StreamingAsyncEngine(BufferedAsyncEngine):
         w_per = ((1.0 / np.float32(k)) * (1.0 + np.asarray(stal, np.float32))
                  ** np.float32(-self.fed.staleness_alpha)).astype(np.float32)
         Q = min(k, self._cohort)
-        losses = np.zeros(k, np.float32)
+        losses = torch.zeros(k, dtype=torch.float32, device=self.device)
         for i0 in range(0, k, Q):
             chunk = staged[i0: i0 + Q]
             losses[i0: i0 + len(chunk)] = self._accumulate(chunk, w_per[i0: i0 + len(chunk)],
                                                            batch)
+        if self._sharded:  # each loss from its owner, zeros elsewhere: an exact sum
+            collectives.all_reduce(losses, self._mesh, self.fed.client_axis)
+        losses = losses.cpu().numpy()
         self._finalize()
         self.version += 1
         if self.scheduler is not None:

@@ -21,6 +21,12 @@ dense, eq6 and static_topn rounds: ``impl="kernel"`` runs K1
 folded-weight multiply-add chain over :func:`merged_runs` in plain torch.
 The reference's ``bucket_tile_bound`` sizes a TPU kernel's bucket window;
 the CUDA kernel gathers each element's weight directly and needs no bound.
+
+Under a mesh whose ``"model"`` axis divides N_total, a rank holds a
+contiguous column block of the buffer (:func:`packed_cols`); the bucket
+ids, the bucket-vector expansion, the layer sums and the masked mean each
+take a ``cols`` block (:func:`block_runs` cuts the merged runs at its
+edges).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import compression as comp
 from repro_torch.models.params import (PROD_AXIS_SIZES, Spec, flatten_with_paths, spec_for,
                                        unflatten)
@@ -85,24 +92,44 @@ def build_pack_spec(cfg, template: PyTree) -> PackSpec:
 def mesh_axis_size(mesh, axis: str) -> int:
     """Size of the ``torch.distributed`` ``DeviceMesh`` dim named ``axis``
     (1 without a mesh or without such a dim)."""
-    names = () if mesh is None else (mesh.mesh_dim_names or ())
-    return mesh.size(names.index(axis)) if axis in names else 1
+    return collectives.size(mesh, axis)
 
 
 def packed_pspec(n_clients: int, client_axis: str, mesh=None) -> slice:
-    """The torch meaning of the reference's ``packed_pspec``: the rows of the
-    (C, N_total) buffer (and of every moment buffer) this rank owns. The
-    client axis splits C into contiguous blocks of C/S rows, block r on the
-    rank at coordinate r; the flat dim stays whole on every rank."""
-    if mesh_axis_size(mesh, "model") > 1:
-        raise NotImplementedError("a 'model' mesh axis larger than 1 (the flat dim sharded "
-                                  "over ranks, FSDP-style) is slice 8")
+    """The torch meaning of the reference's ``packed_pspec`` along the client
+    dim: the rows of the (C, N_total) buffer (and of every client-stacked
+    buffer) this rank owns. The client axis splits C into contiguous blocks
+    of C/S rows, block r on the rank at coordinate r. :func:`packed_cols`
+    gives the flat dim's block, :func:`packed_block` both."""
     S = mesh_axis_size(mesh, client_axis)
     if S == 1:
         return slice(0, n_clients)
     k = n_clients // S
     r = mesh.get_local_rank(client_axis)
     return slice(r * k, (r + 1) * k)
+
+
+def packed_cols(n_total: int, mesh=None) -> slice:
+    """The flat dim's block this rank holds: where the mesh's ``"model"``
+    axis has M > 1 ranks and divides N_total (:func:`packed_spec`'s rule),
+    the contiguous N_total / M elements of block j on model coordinate j;
+    else the whole flat dim, on every model rank."""
+    M = mesh_axis_size(mesh, "model")
+    if M == 1 or n_total % M:
+        return slice(0, n_total)
+    k = n_total // M
+    j = mesh.get_local_rank("model")
+    return slice(j * k, (j + 1) * k)
+
+
+def packed_block(n_clients: int, n_total: int, client_axis: str, mesh=None) -> tuple[slice, slice]:
+    """(rows, cols) of the (C, N_total) buffer this rank holds."""
+    return packed_pspec(n_clients, client_axis, mesh), packed_cols(n_total, mesh)
+
+
+def is_block(cols: slice | None, n_total: int) -> bool:
+    """True when ``cols`` is a strict part of the flat dim."""
+    return cols is not None and (cols.start, cols.stop) != (0, n_total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,10 +173,16 @@ def bucket_ids(spec: PackSpec) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def bucket_ids_on(spec: PackSpec, device: torch.device) -> torch.Tensor:
+def bucket_ids_on(spec: PackSpec, device: torch.device, cols: slice | None = None) -> torch.Tensor:
     """:func:`bucket_ids` as an int32 tensor on ``device``, built there once
     per process: a full-width LM has 1.7 G ids (6.9 GB), which a host build
-    and copy took seconds over."""
+    and copy took seconds over. ``cols``: only the ids of that block of the
+    flat dim (what K1 takes on a column block), built as such."""
+    if cols is not None:
+        return torch.cat([
+            torch.arange(b0, b0 + nb, dtype=torch.int32, device=device).repeat_interleave(per)
+            for _, b0, nb, per in block_runs(spec, cols.start, cols.stop)
+        ])
     return torch.cat([
         (torch.arange(s.n_buckets, dtype=torch.int32, device=device) + s.bucket_off)
         .repeat_interleave(s.per_bucket)
@@ -234,21 +267,56 @@ def merged_runs(spec: PackSpec) -> tuple[tuple[int, int, int, int], ...]:
     return tuple(runs)
 
 
-def expand_bucket_vec(spec: PackSpec, vec: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def block_runs(spec: PackSpec, start: int, stop: int) -> tuple[tuple[int, int, int, int], ...]:
+    """:func:`merged_runs` cut to the columns ``[start, stop)``: runs
+    ``(col0, bucket0, n_buckets, per)`` with ``col0`` counted from
+    ``start``. A bucket the block's edge cuts becomes a run of its own
+    (one bucket of the ``per`` elements inside the block)."""
+    out = []
+    for col0, b0, nb, per in merged_runs(spec):
+        lo, hi = max(start, col0), min(stop, col0 + nb * per)
+        if lo >= hi:
+            continue
+        i = (lo - col0) // per  # the first bucket the block touches
+        if (lo - col0) % per:  # its head, cut by the block's start
+            end = min(hi, col0 + (i + 1) * per)
+            out.append((lo - start, b0 + i, 1, end - lo))
+            lo, i = end, i + 1
+        whole = (hi - lo) // per
+        if whole:
+            out.append((lo - start, b0 + i, whole, per))
+            lo, i = lo + whole * per, i + whole
+        if lo < hi:  # the tail, cut by the block's end
+            out.append((lo - start, b0 + i, 1, hi - lo))
+    return tuple(out)
+
+
+def _runs(spec: PackSpec, cols: slice | None):
+    return merged_runs(spec) if cols is None else block_runs(spec, cols.start, cols.stop)
+
+
+def expand_bucket_vec(spec: PackSpec, vec: torch.Tensor, cols: slice | None = None) -> torch.Tensor:
     """(..., n_buckets) bucket vector -> (..., N_total) per-element vector,
-    one broadcast per merged run."""
+    one broadcast per merged run; ``cols``: only that block's elements."""
     parts = []
-    for (_, b0, nb, per) in merged_runs(spec):
+    for (_, b0, nb, per) in _runs(spec, cols):
         v = vec[..., b0: b0 + nb]
         parts.append(v[..., None].expand(v.shape + (per,)).reshape(v.shape[:-1] + (nb * per,)))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
-def bucket_sums(spec: PackSpec, packed: torch.Tensor) -> torch.Tensor:
+def bucket_sums(spec: PackSpec, packed: torch.Tensor, cols: slice | None = None) -> torch.Tensor:
     """Per-bucket signed element sums: (C, N_total) -> (C, n_buckets) f32
-    (the Eq. 6 inner sums)."""
+    (the Eq. 6 inner sums). ``cols``: ``packed`` is that block of the flat
+    dim, and the sums are the block's part of each bucket's."""
     C = packed.shape[0]
     out = torch.zeros((C, spec.n_buckets), dtype=torch.float32, device=packed.device)
+    if cols is not None:
+        for (col0, b0, nb, per) in block_runs(spec, cols.start, cols.stop):
+            x = packed[:, col0: col0 + nb * per].float()
+            out[:, b0: b0 + nb] += x.reshape(C, nb, per).sum(dim=-1)
+        return out
     for s in spec.slots:
         x = packed[:, s.offset: s.offset + s.size].float()
         sums = x.reshape(C, s.n_buckets, s.per_bucket).sum(dim=-1)
@@ -327,6 +395,7 @@ def masked_bucket_mean(
     mask: torch.Tensor | None = None,
     *,
     impl: str = "ref",
+    cols: slice | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted mean over clients under a per-(client, bucket) mask.
 
@@ -338,7 +407,10 @@ def masked_bucket_mean(
 
     ``impl="kernel"``: K1 gives per-element (num, den) and the division
     takes a 1e-12 floor. ``impl="ref"``: 1/den folds into the per-bucket
-    weights and one multiply-add chain runs per merged run.
+    weights and one multiply-add chain runs per merged run. ``cols``:
+    ``packed`` is that block of the flat dim (K1 takes the block's ids);
+    each element's arithmetic is the whole row's, so a block's mean is
+    that block of the whole mean bit for bit.
     """
     C = packed.shape[0]
     wm = wmask.float()
@@ -348,7 +420,7 @@ def masked_bucket_mean(
     if impl == "kernel":
         from repro_torch.kernels import pack as kpack
 
-        ids = bucket_ids_on(spec, packed.device)
+        ids = bucket_ids_on(spec, packed.device, cols)
         num, den = kpack.packed_bucket_reduce(
             packed, wmask.float().contiguous(), ids,
             None if mask is None else mask.float().contiguous(),
@@ -359,7 +431,7 @@ def masked_bucket_mean(
         raise ValueError(f"agg_impl={impl!r}; expected ref | kernel")
     wn = wm / torch.clamp_min(den_b, 1e-12)[None, :]
     parts = []
-    for (col0, b0, nb, per) in merged_runs(spec):
+    for (col0, b0, nb, per) in _runs(spec, cols):
         xs = packed[:, col0: col0 + nb * per].float().reshape(C, nb, per)
         wt = wn[:, b0: b0 + nb]  # (C, nb)
         if C > CHAIN_MAX_CLIENTS:

@@ -43,8 +43,23 @@ the whole-cohort batch, and all-gathers ``client_loss``, so every rank
 reports the same metrics. quant8 and hier move their own rows
 (``Aggregator.local_rows``); every other aggregator gets the whole buffer by
 one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
-(what XLA's SPMD does for them in the reference). The tree layout (slice 9)
-raises ``NotImplementedError``.
+(what XLA's SPMD does for them in the reference).
+
+The mesh's ``"model"`` dim, where its M ranks divide N_total, splits the
+flat dim too (``packing.packed_cols``): a rank holds the (C/S, N_total/M)
+block of the params, of every moment and of every aggregator buffer along
+the flat dim, FSDP-style. Each local step gathers the client's whole row,
+runs on the model rank's 1/M of the step's batch and reduce-scatters the
+gradient to the rank's block, which the optimizer steps
+(:func:`local_training`). A column-local aggregator aggregates the block;
+the others get whole rows, gathered over the model axis, and the rank
+keeps its block (:func:`aggregate_sharded`). Where M does not divide
+N_total, the flat dim stays whole on every model rank and only the batch
+splits. fedsgd treats the client axis as data-parallel ranks too: each
+takes its clients' part of the merged batch and the gradient is summed
+over both axes, so the one shared copy steps identically on every rank.
+Every collective goes through ``core.collectives``. The tree layout
+(slice 9) raises ``NotImplementedError``.
 
 For the launch plans (``launch.specs``), :func:`state_template` gives the
 round state on the ``meta`` device (shapes, no memory) and
@@ -63,7 +78,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import aggregators, packing
+from repro_torch.core import aggregators, collectives, packing
 from repro_torch.models import params as mp
 from repro_torch.models import transformer, yolov3
 from repro_torch.optim import Optimizer
@@ -145,7 +160,10 @@ def make_aggregator(cfg, fed: FedConfig, mesh=None) -> aggregators.Aggregator:
                          f"{mesh.mesh_dim_names}")
     tpl = make_template(cfg)
     spec = packing.build_pack_spec(cfg, tpl)
-    ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec, mesh=mesh)
+    cols = packing.packed_cols(spec.n_total, mesh)
+    ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec, mesh=mesh,
+                                 cols=cols if packing.is_block(cols, spec.n_total) else None,
+                                 cols_mesh=mesh)
     return aggregators.get(fed.aggregation)(ctx)
 
 
@@ -241,24 +259,49 @@ def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Gener
     model (the server's dispatch, :func:`initial_row`); under a client mesh,
     this rank's rows (``packing.packed_pspec``) and their moments. The
     fedsgd topology holds the one shared (N_total,) row, its (N_total,)
-    moments and no aggregator state. Parity with the reference comes from
-    carrying its state over (``models.convert``)."""
+    moments and no aggregator state. Under a mesh whose model axis splits
+    the flat dim, each of those is the rank's column block
+    (``packing.packed_block``), as is each aggregator buffer along the flat
+    dim, copied out so that no rank holds another's part. Parity with the
+    reference comes from carrying its state over (``models.convert``)."""
     from repro_torch import device as D
 
     dev = D.resolve(device)
     agg = make_aggregator(cfg, fed, mesh)
     row = initial_row(agg, generator, dev, dtype)
+    rows, cols = packing.packed_block(fed.n_clients, agg.ctx.spec.n_total, fed.client_axis, mesh)
     if not agg.stacked:
-        return {"params": row[0], "opt": {k: v[0] for k, v in optimizer.init(row).items()},
+        shared = row[:, cols].clone()
+        return {"params": shared[0], "opt": {k: v[0] for k, v in optimizer.init(shared).items()},
                 "agg": {}, "round": 0}
     full = row.expand(fed.n_clients, -1)  # a view: every client holds the dispatch
-    packed = full[packing.packed_pspec(fed.n_clients, fed.client_axis, mesh)].contiguous()
-    return {
-        "params": packed,
-        "opt": optimizer.init(packed),
-        "agg": agg.init_state(full),
-        "round": 0,
-    }
+    packed = full[rows, cols].clone(memory_format=torch.contiguous_format)
+    agg_state = agg.init_state(full)
+    if mesh is not None:
+        agg_state = agg.state_block(agg_state, rows, cols)
+    return {"params": packed, "opt": optimizer.init(packed), "agg": agg_state, "round": 0}
+
+
+def state_bytes(state: PyTree) -> dict[str, int]:
+    """Bytes of a round state's tensors by kind: ``"clients"`` the
+    client-stacked buffers along the flat dim (params, moments, error
+    feedback), ``"server"`` the flat rows with no client dim (a dispatched
+    base, a server global and its moments, fedsgd's shared copy), and
+    ``"other"`` the rest (step counts, per-bucket sums), which every rank
+    holds whole."""
+    flat = aggregators.FLAT_KEYS | {"params"}
+    out = {"clients": 0, "server": 0, "other": 0}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, torch.Tensor):
+            kind = "other" if key not in flat else "clients" if node.dim() >= 2 else "server"
+            out[kind] += node.numel() * node.element_size()
+
+    walk(state, None)
+    return out
 
 
 def is_stateless(optimizer: Optimizer) -> bool:
@@ -357,54 +400,118 @@ def to_device(batch: PyTree, device: str | torch.device) -> PyTree:
 # The round
 # ---------------------------------------------------------------------------
 
-def local_training(cfg, fed: FedConfig, optimizer: Optimizer) -> Callable:
+def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
+                   shared: bool = False) -> Callable:
     """The local trainer every engine shares: ``local_train(row, opt_row,
     batch) -> mean step loss`` runs ``fed.local_steps`` steps on one packed
     (N_total,) row and its optimizer rows (a dict of the matching rows of
     each state buffer, ``{}`` for a stateless optimizer), in place; ``batch``
     leaves are (E, b, ...). The sync round, the buffered flush, the
-    streaming fold and the row update all train through it."""
+    streaming fold and the row update all train through it.
+
+    ``mesh``: the step's batch splits over the P data-parallel ranks, the M
+    of the ``"model"`` dim (and with ``shared``, fedsgd's one shared copy,
+    the S of the client axis as well: rank (s, j) takes part ``s M + j``).
+    Where the model axis splits the flat dim (``packing.packed_cols``) the
+    row and its optimizer rows are the rank's column block, and each step
+    is FSDP over the flat dim: the client's whole row is all-gathered into
+    one reused (N_total,) buffer, ``grads_of`` runs on the rank's part of
+    the batch, the packed gradient is reduce-scattered (a sum) to the
+    block, divided by the number of parts (a mean), and the optimizer steps
+    the block (the clip's norm summed over the model axis). Where the flat
+    dim stays whole, the gradient is all-reduced instead and every model
+    rank steps the whole row alike. The loss is all-reduced to the mean of
+    the parts. Cost: one full row and one full gradient live per rank
+    during a step, beside the block state; the collectives run one after
+    another, not under the compute. The batch (with ``microbatches`` m > 1:
+    the m microbatches) must split into P parts, else ``ValueError``. A
+    one-rank mesh takes the same code, its collectives the identity, and
+    equals the meshless trainer bit for bit."""
     tpl = make_template(cfg)
     spec = packing.build_pack_spec(cfg, tpl)
     loss_fn = loss_for(cfg)
+    N = spec.n_total
+    cols = packing.packed_cols(N, mesh)
+    blocked = packing.is_block(cols, N)
+    M = packing.mesh_axis_size(mesh, "model")
+    S = packing.mesh_axis_size(mesh, fed.client_axis) if shared else 1
+    P = S * M
+    part = ((mesh.get_local_rank(fed.client_axis) if S > 1 else 0) * M
+            + (mesh.get_local_rank("model") if M > 1 else 0))
+    whole_rows: dict = {}  # the reused (N_total,) row buffer, per device and dtype
+
+    def whole(row: torch.Tensor) -> torch.Tensor:
+        if not blocked:
+            return row
+        buf = whole_rows.get((row.device, row.dtype))
+        if buf is None:
+            buf = whole_rows[(row.device, row.dtype)] = torch.empty(N, dtype=row.dtype,
+                                                                   device=row.device)
+        return collectives.all_gather_into_tensor(buf, row, mesh, "model")
+
+    def over_parts(x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the P ranks, in place; a gradient lands as
+        the rank's block where the flat dim is split."""
+        if blocked and x.dim():
+            x = collectives.reduce_scatter_tensor(
+                torch.empty(cols.stop - cols.start, dtype=x.dtype, device=x.device), x, mesh,
+                "model")
+        else:
+            collectives.all_reduce(x, mesh, "model")
+        if S > 1:
+            collectives.all_reduce(x, mesh, fed.client_axis)
+        return x
 
     def grads_of(row: torch.Tensor, step_batch: PyTree):
-        """(loss, packed gradient) of one local step at ``row``: the loss runs
-        over views of a detached alias of the row, so the gradient comes
-        back as one (N_total,) tensor in the packed layout. With m
-        microbatches: the sum of the m gradients from zero, then one true
-        division by m, and the mean loss (the reference's scan)."""
-        flat = row.detach().requires_grad_(True)
-        views = packing.unpack_views(spec, flat, tpl)
+        """(loss, packed gradient) of one local step at ``row`` (the rank's
+        block of it where the flat dim is split): the loss runs over views
+        of a detached alias of the whole row, so the gradient comes back as
+        one (N_total,) tensor in the packed layout. The step's batch splits
+        into T parts, the m microbatches or else the P ranks' parts; the
+        rank runs its T / P of them in order, their gradients summed, the
+        sum taken over the P ranks (to the rank's block) and divided by T
+        once, and the mean loss (the reference's scan). With T = 1, one
+        pass over the whole batch."""
         m = fed.microbatches
-        if m <= 1:
-            loss, _ = loss_fn(views, step_batch)
+        T = m if m > 1 else P
+        b = next(iter(mp.flatten_with_paths(step_batch)))[1].shape[0]
+        if T % P or b % T:
+            if P == 1:
+                raise ValueError(f"a local batch of {b} does not split into {m} microbatches")
+            raise ValueError(f"a local batch of {b}" + (f" in {m} microbatches" if m > 1 else "")
+                             + f" does not split over the {P} data-parallel ranks of the mesh "
+                             f"({M} on 'model', {S} on {fed.client_axis!r})")
+        flat = whole(row).detach().requires_grad_(True)
+        views = packing.unpack_views(spec, flat, tpl)
+        if T > 1:
+            cut = mp.map_tree(lambda x: x.reshape((T, b // T) + x.shape[1:]), step_batch)
+        tot = g_sum = None
+        for i in range(part * (T // P), (part + 1) * (T // P)):
+            loss, _ = loss_fn(views, step_batch if T == 1 else mp.map_tree(lambda x: x[i], cut))
             (g,) = torch.autograd.grad(loss, flat)
-            return loss.detach(), g
-
-        def split(x):
-            if x.shape[0] % m:
-                raise ValueError(f"a local batch of {x.shape[0]} does not split into {m} "
-                                 f"microbatches")
-            return x.reshape((m, x.shape[0] // m) + x.shape[1:])
-
-        micro = mp.map_tree(split, step_batch)
-        tot = torch.zeros((), dtype=torch.float32, device=row.device)
-        g_sum = torch.zeros_like(row)
-        for i in range(m):
-            loss, _ = loss_fn(views, mp.map_tree(lambda x: x[i], micro))
-            (g,) = torch.autograd.grad(loss, flat)
-            tot = tot + loss.detach()
-            g_sum.add_(g)
+            if g_sum is None:  # the first part's gradient is the sum's buffer
+                tot, g_sum = loss.detach(), g
+            else:
+                tot = tot + loss.detach()
+                g_sum.add_(g)
             del g
-        return packing.exact_div(tot, float(m)), packing.exact_div(g_sum, float(m))
+        del views, flat
+        tot, g_sum = over_parts(tot), over_parts(g_sum)
+        if T == 1:
+            return tot, g_sum
+        return packing.exact_div(tot, float(T)), packing.exact_div(g_sum, float(T))
+
+    sum_blocks = (lambda x: collectives.all_reduce(x, mesh, "model")) if blocked else None
 
     def local_train(row: torch.Tensor, opt_row: dict, batch: PyTree) -> torch.Tensor:
         losses = []
         for e in range(fed.local_steps):
             loss, g = grads_of(row, mp.map_tree(lambda x: x[e], batch))
             with torch.no_grad():
-                optimizer.update(row, g, opt_row)
+                if sum_blocks is None:
+                    optimizer.update(row, g, opt_row)
+                else:
+                    optimizer.update(row, g, opt_row, sum_blocks)
             losses.append(loss)
         return torch.stack(losses).mean()
 
@@ -473,15 +580,13 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
             f"sharded client axis: n_clients={C} must be "
             f"divisible by the '{fed.client_axis}' mesh axis ({S} shards)"
         )
-    if S > 1 and not agg.stacked:
-        raise NotImplementedError("fedsgd over a sharded client axis (a data-parallel gradient "
-                                  "all-reduce of the one shared copy) is slice 8")
     own = packing.packed_pspec(C, fed.client_axis, mesh)
-    local_train = local_training(cfg, fed, optimizer)
+    local_train = local_training(cfg, fed, optimizer, mesh, shared=not agg.stacked)
 
     def fedsgd_round(state: PyTree, batch: PyTree):
         # clients = data-parallel shards of one batch, so param-averaging is
-        # gradient-averaging for E = 1: one shared copy trains on it
+        # gradient-averaging for E = 1: one shared copy trains on it (over a
+        # sharded client axis, each rank on its clients' part of it)
         loss = local_train(state["params"], state["opt"], batch)
         out = {**state, "round": state["round"] + 1}
         return out, {"loss": loss, "client_loss": loss.expand(C).clone()}
@@ -503,16 +608,43 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
         mask_d = None if mask is None else mask.to(packed.device)
         if S > 1:
             loss = aggregators.gather_clients(loss, fed, mesh)
-        if S > 1 and not agg.local_rows:
-            full, agg_state = agg.aggregate(aggregators.gather_clients(packed, fed, mesh),
-                                            weights, state["agg"], mask_d)
-            packed.copy_(full[own])
-        else:
-            packed, agg_state = agg.aggregate(packed, weights, state["agg"], mask_d)
+        packed, agg_state = aggregate_sharded(agg, packed, weights, state["agg"], mask_d)
         out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
         return out, round_metrics(loss, mask_d)
 
     return fed_round
+
+
+def aggregate_sharded(agg: aggregators.Aggregator, packed: torch.Tensor, weights: torch.Tensor,
+                      agg_state: PyTree, mask: torch.Tensor | None = None):
+    """The registered aggregate over this rank's block of the round buffer,
+    written into it in place -> (packed, new aggregator state, the rank's
+    block of it). Without a mesh, ``agg.aggregate`` itself. Over a model
+    axis that splits the flat dim, an aggregator that is not column-local
+    gets whole rows (the buffer and its flat state leaves all-gathered over
+    ``"model"``); over a sharded client axis, one that does not move its own
+    rows gets all C rows (the buffer and its client-stacked state leaves
+    all-gathered over the client axis). The rank keeps its block of what
+    comes out."""
+    ctx = agg.ctx
+    fed, mesh = ctx.fed, ctx.mesh
+    wide = ctx.cols is not None and not agg.local_cols
+    tall = packing.mesh_axis_size(mesh, fed.client_axis) > 1 and not agg.local_rows
+    if not (wide or tall):
+        return agg.aggregate(packed, weights, agg_state, mask)
+    x, st = packed, agg_state
+    if wide:
+        x = collectives.all_gather(x, mesh, "model", axis=-1)
+        st = aggregators.map_state(st, cols=lambda t: collectives.all_gather(t, mesh, "model", -1))
+    if tall:
+        x = aggregators.gather_clients(x, fed, mesh)
+        if agg.row_state:
+            st = aggregators.map_state(st, rows=lambda t: aggregators.gather_clients(t, fed, mesh))
+    out, st = agg.aggregate(x, weights, st, mask)
+    rows = packing.packed_pspec(fed.n_clients, fed.client_axis, mesh) if tall else slice(None)
+    cols = ctx.cols if wide else slice(None)
+    packed.copy_(out[rows, cols])
+    return packed, agg.state_block(st, rows if tall else None, cols if wide else None)
 
 
 def merge_clients(batch: PyTree) -> PyTree:

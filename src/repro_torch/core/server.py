@@ -17,8 +17,11 @@ Compact participation asks the scheduler for exactly K =
 ``rounds.static_budget`` clients a round and hands their ``idx`` to the
 round. The fedsgd topology trains one shared copy on the cohort's batch
 merged into one (``rounds.merge_clients``). A client mesh (``mesh``, a
-``torch.distributed`` ``DeviceMesh``) goes to the round; every rank of it
-runs the same server, with the same seeds, in step.
+``torch.distributed`` ``DeviceMesh``) goes to the round, or to the async
+engine; every rank of it runs the same server, with the same seeds, in
+step. The global model (:meth:`FLServer.global_params`) is whole on every
+rank, gathered over the client and model axes, and only global rank 0
+writes the COS checkpoints.
 
 Async mode (``FedConfig.mode == "async"``, DESIGN.md §12) swaps the round
 control plane for ``core.async_engine``: the buffered engine, or the
@@ -45,7 +48,7 @@ import torch
 
 from repro_torch import device as D
 from repro_torch.checkpoint import ObjectStore
-from repro_torch.core import aggregators, explorer, packing, rounds
+from repro_torch.core import aggregators, collectives, explorer, packing, rounds
 from repro_torch.core.async_engine import (AsyncRoundRecord, BufferedAsyncEngine,
                                            StreamingAsyncEngine, TimingModel,
                                            default_upload_terms, sync_round_seconds)
@@ -153,15 +156,18 @@ class FLServer:
         (the reference's one-row unpack). After a sync round every row holds
         the global, so row 0 serves (fedsgd: its one shared copy; over a
         sharded client axis row 0 lives on the axis' first rank, which
-        broadcasts it: every rank calls this together). An async state only
-        guarantees some rows hold the fresh global, so this reads the
-        engine's ``global_packed_row()``, never a fixed row. This is the
-        pack/unpack edge: checkpoint PUT, evaluation and dispatch to
-        serving."""
+        broadcasts it; over a model axis that splits the flat dim, the
+        blocks are all-gathered: every rank calls this together and gets
+        the whole model). An async state only guarantees some rows hold the
+        fresh global, so this reads the engine's ``global_packed_row()``,
+        never a fixed row. This is the pack/unpack edge: checkpoint PUT,
+        evaluation and dispatch to serving."""
         if self.engine is not None:
-            row = self.engine.global_packed_row()
+            row = self.engine.global_packed_row()  # whole on every rank
         else:
             row = self.state["params"] if not self.aggregator.stacked else self._row0()
+            if self.aggregator.ctx.cols is not None:
+                row = collectives.all_gather(row, self.mesh, "model")
         return rounds.global_model(self.cfg, row, self.device)
 
     def _row0(self) -> torch.Tensor:
@@ -169,12 +175,17 @@ class FLServer:
         axis = self.fed.client_axis
         if packing.mesh_axis_size(self.mesh, axis) == 1:
             return packed[0]
+        # the first rank's row 0 is global row 0
+        return collectives.broadcast(packed[0].clone(), self.mesh, axis, 0)
+
+    def _checkpoint(self, round_idx: int, loss: float) -> None:
+        """A COS PUT of the global model: every rank of a mesh gathers it,
+        global rank 0 alone writes."""
         import torch.distributed as dist
 
-        group = self.mesh.get_group(axis)
-        row = packed[0].clone()  # the first rank's row 0 is global row 0
-        dist.broadcast(row, src=dist.get_global_rank(group, 0), group=group)
-        return row
+        model = self.global_params()
+        if self.mesh is None or dist.get_rank() == 0:
+            self.store.put_model(self.task_id, round_idx, model, {"loss": loss})
 
     def run_round(self, batch: PyTree) -> RoundRecord:
         """One sync round. ``batch`` (the cohort's, client-stacked (C, E, b,
@@ -219,7 +230,7 @@ class FLServer:
         )
         self.history.append(rec)
         if self.store and self.checkpoint_every and rec.round_idx % self.checkpoint_every == 0:
-            self.store.put_model(self.task_id, rec.round_idx, self.global_params(), {"loss": loss})
+            self._checkpoint(rec.round_idx, loss)
         return rec
 
     def run_async(self, batch: PyTree) -> AsyncRoundRecord:
@@ -235,8 +246,7 @@ class FLServer:
         self.state = self.engine.state  # global_params and eval read through here
         self.history.append(rec)
         if self.store and self.checkpoint_every and rec.round_idx % self.checkpoint_every == 0:
-            self.store.put_model(self.task_id, rec.round_idx, self.global_params(),
-                                 {"loss": rec.loss})
+            self._checkpoint(rec.round_idx, rec.loss)
         return rec
 
     def next_time(self) -> float:

@@ -12,7 +12,8 @@ persistent grid, the exact per-block divide), and the header
 ``mma.sync`` and ``cp.async``) are compiled for ``sm_90a`` by
 one ``torch.utils.cpp_extension.load`` call into ``build/torch_ext/`` at the
 root of the checkout, the first time a kernel is launched in a process;
-ninja runs one ``nvcc`` per source in parallel. The sources expose a plain
+ninja runs one ``nvcc`` per source in parallel, under a file lock in the
+build directory, so processes sharing the checkout never race a build. The sources expose a plain
 C interface and include no PyTorch header, so a build takes seconds, not
 minutes; the library is bound with ``ctypes``, every pointer and the stream
 as ``c_void_p``. A failed build raises: nothing falls back to the plain
@@ -51,18 +52,28 @@ _lock = threading.Lock()
 
 @functools.lru_cache(maxsize=None)
 def _load_locked() -> ctypes.CDLL:
+    import fcntl
+
     from torch.utils.cpp_extension import load
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = load(
-        name="repro_torch_kernels",
-        sources=[str(CSRC / name) for name in SOURCES],
-        build_directory=str(BUILD_DIR),
-        extra_cuda_cflags=CUDA_FLAGS,
-        is_python_module=False,
-        verbose=False,
-    )
-    lib = ctypes.CDLL(path)
+    # processes sharing the checkout (the ranks of a sharded run) build one
+    # at a time: the first builds, the others find the library built
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        path = load(
+            name="repro_torch_kernels",
+            sources=[str(CSRC / name) for name in SOURCES],
+            build_directory=str(BUILD_DIR),
+            extra_cuda_cflags=CUDA_FLAGS,
+            is_python_module=False,
+            verbose=False,
+        )
+    return _bind(ctypes.CDLL(path))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and return types."""
     p, i, f, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
     argtypes = {
         "nms_keep_launch": [p, p, p, i, i, f, p],

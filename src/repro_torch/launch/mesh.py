@@ -46,7 +46,16 @@ def n_devices(axes: dict[str, int]) -> int:
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cpu"):
     """A ``DeviceMesh`` with dims ``("data", "model")`` over the ranks of the
-    initialised process group, which must hold exactly ``data * model``."""
+    initialised process group, which must hold exactly ``data * model``:
+    the one builder of every mesh the port runs on (the launcher's 1 x 1,
+    the sharded rounds' ``(S, M)``).
+
+    ``device_type`` is the device the mesh's tensors live on; the group's
+    backend for that device type carries them (``core.collectives`` picks
+    the path by it): ``"cpu"`` takes gloo; ``"cuda"`` takes NCCL where the
+    group was initialised with it (``"cpu:gloo,cuda:nccl"``, one rank a
+    card), or gloo, which ``core.collectives`` stages through pinned host
+    memory (several ranks sharing one card, which NCCL refuses)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 

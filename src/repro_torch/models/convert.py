@@ -14,15 +14,18 @@ comes from the config's family): the reference's ``state["params"]`` is
 already the packed ``(C, N_total)`` buffer in the port's layout, and its
 optimizer moments (client-stacked trees such as ``state["opt"]["mu"]`` or
 adamw's ``"m"`` and ``"v"``) pack into the port's ``(C, N_total)`` moment
-buffers; its ``rows`` argument keeps one rank's row block of a sharded
-client axis. :func:`fedsgd_state_from_reference` carries the fedsgd
+buffers; its ``rows`` and ``cols`` arguments keep one rank's block of a
+mesh (``core.packing.packed_block``): the rows of a sharded client axis and
+the column block of a model axis that splits the flat dim. :func:`fedsgd_state_from_reference` carries the fedsgd
 topology's one shared tree and its moments into the one packed row.
 :func:`agg_state_from_reference`
 and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
 (``base``, ``global``, ``ef``, ``prev_sums``, the server optimizer's
 ``opt`` moments and step count, hier's state of its base) are flat arrays
 in both packages; only the round counter changes form, a traced int32
-scalar there and a Python int here (it keys the PRNG on the host).
+scalar there and a Python int here (it keys the PRNG on the host). Its
+``rows`` and ``cols`` keep a rank's block of the leaves that follow the
+flat dim (``core.aggregators.map_state``).
 
 :func:`lm_params_from_reference` and :func:`lm_params_to_reference` carry an
 LM's param tree (``transformer.template``'s layout, layer stacks stacked) in
@@ -87,7 +90,7 @@ def _spec(cfg):
 
 
 def state_from_reference(cfg, params, opt: dict, device: str | torch.device = "cpu",
-                         rows: slice = slice(None)):
+                         rows: slice = slice(None), cols: slice = slice(None)):
     """The reference's flat state -> (packed params (C, N_total), opt dict).
 
     params: ``state["params"]`` as a (C, N_total) array; opt:
@@ -95,16 +98,19 @@ def state_from_reference(cfg, params, opt: dict, device: str | torch.device = "c
     arrays (``{"mu": tree}`` for sgd, ``{"m", "v": tree, "t": (C,)}`` for
     adamw, ``{}`` for stateless sgd). Moments pack into (C, N_total)
     buffers; the step count stays a (C,) tensor. ``rows`` keeps a block of
-    clients, e.g. a rank's ``packing.packed_pspec`` under a client mesh."""
+    clients, e.g. a rank's ``packing.packed_pspec`` under a client mesh, and
+    ``cols`` a block of the flat dim (``packing.packed_cols``) of the params
+    and of each moment buffer."""
     from repro_torch.core import packing
 
     spec, _ = _spec(cfg)
-    packed = torch.tensor(np.asarray(params, np.float32)[rows], device=device)
-    if packed.shape[1] != spec.n_total:
-        raise ValueError(f"params have {packed.shape[1]} columns, the spec {spec.n_total}")
+    params = np.asarray(params, np.float32)
+    if params.shape[1] != spec.n_total:
+        raise ValueError(f"params have {params.shape[1]} columns, the spec {spec.n_total}")
+    packed = torch.tensor(params[rows, cols], device=device)
     as_t = lambda x: torch.tensor(np.asarray(x)[rows], device=device)
-    out = {k: packing.pack(spec, map_tree(as_t, v)) if isinstance(v, (dict, tuple, list))
-           else as_t(v) for k, v in opt.items()}
+    out = {k: packing.pack(spec, map_tree(as_t, v))[:, cols].clone()
+           if isinstance(v, (dict, tuple, list)) else as_t(v) for k, v in opt.items()}
     return packed, out
 
 
@@ -143,9 +149,19 @@ def state_to_reference(cfg, packed: torch.Tensor, opt: dict):
 
 
 
-def agg_state_from_reference(agg: dict, device: str | torch.device = "cpu") -> dict:
+def agg_state_from_reference(agg: dict, device: str | torch.device = "cpu",
+                             rows: slice | None = None, cols: slice | None = None) -> dict:
     """The reference's ``state["agg"]`` -> the port's: arrays become tensors
-    of the same dtype and bits, ``round`` a Python int, dicts recurse."""
+    of the same dtype and bits, ``round`` a Python int, dicts recurse.
+    ``cols`` keeps that block of every leaf along the flat dim and ``rows``
+    those rows of every client-stacked one (``aggregators.map_state``; a
+    hier state over groups keeps its rows whole: pass no ``rows``)."""
+    if rows is not None or cols is not None:
+        from repro_torch.core.aggregators import map_state
+
+        return map_state(agg_state_from_reference(agg, device),
+                         cols=None if cols is None else lambda t: t[..., cols].clone(),
+                         rows=None if rows is None else lambda t: t[rows].clone())
     out = {}
     for k, v in agg.items():
         if isinstance(v, dict):

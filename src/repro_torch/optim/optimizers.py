@@ -16,6 +16,14 @@ over views of the row), so the optimizer works on flat tensors:
 
 The global norm of :func:`clip_by_global_norm` is the norm of the whole
 packed gradient, which is the reference's norm over all leaves.
+
+Under a mesh's ``"model"`` axis a rank holds a column block of each row
+(``core.packing.packed_cols``) and steps it alone: ``update(p, g, state,
+reduce)`` takes the block of the row, of its gradient and of its moments.
+Both optimizers are elementwise except for the clip, whose squared sum is
+the block's, summed over the model axis by ``reduce`` (an in-place sum of
+a 0-d tensor over the ranks holding the other blocks), so every rank
+scales by the norm of the whole row.
 """
 from __future__ import annotations
 
@@ -28,14 +36,17 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[torch.Tensor], dict[str, torch.Tensor]]
-    update: Callable[[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]], None]
+    update: Callable[..., None]  # (p, g, state[, reduce]) -> None, in place
     name: str = "opt"
 
 
-def clip_by_global_norm(grads: torch.Tensor, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: torch.Tensor, max_norm: float, reduce=None) -> torch.Tensor:
     """Scale ``grads`` so its global L2 norm is at most ``max_norm`` (no
-    host sync: the scale stays a tensor)."""
-    norm = torch.sqrt(torch.sum(torch.square(grads.float())))
+    host sync: the scale stays a tensor). ``reduce``: ``grads`` is a block
+    of the row, and ``reduce`` sums the block's squared sum in place over
+    the ranks holding the others."""
+    sq = torch.sum(torch.square(grads.float()))
+    norm = torch.sqrt(sq if reduce is None else reduce(sq))
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
     return (grads.float() * scale).to(grads.dtype)
 
@@ -47,9 +58,9 @@ def sgd(lr: float = 1e-2, momentum: float = 0.9, clip_norm: float = 10.0) -> Opt
         def init0(packed: torch.Tensor) -> dict:
             return {}
 
-        def update0(p: torch.Tensor, g: torch.Tensor, state: dict) -> None:
+        def update0(p: torch.Tensor, g: torch.Tensor, state: dict, reduce=None) -> None:
             if clip_norm:
-                g = clip_by_global_norm(g, clip_norm)
+                g = clip_by_global_norm(g, clip_norm, reduce)
             p.sub_(lr * g.to(p.dtype))
 
         return Optimizer(init0, update0, "sgd")
@@ -57,9 +68,9 @@ def sgd(lr: float = 1e-2, momentum: float = 0.9, clip_norm: float = 10.0) -> Opt
     def init(packed: torch.Tensor) -> dict:
         return {"mu": torch.zeros_like(packed)}
 
-    def update(p: torch.Tensor, g: torch.Tensor, state: dict) -> None:
+    def update(p: torch.Tensor, g: torch.Tensor, state: dict, reduce=None) -> None:
         if clip_norm:
-            g = clip_by_global_norm(g, clip_norm)
+            g = clip_by_global_norm(g, clip_norm, reduce)
         mu = state["mu"]
         mu.mul_(momentum).add_(g.to(mu.dtype))
         p.sub_((lr * mu).to(p.dtype))
@@ -78,9 +89,9 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
             "t": torch.zeros(packed.shape[:1], dtype=torch.int32, device=packed.device),
         }
 
-    def update(p: torch.Tensor, g: torch.Tensor, state: dict) -> None:
+    def update(p: torch.Tensor, g: torch.Tensor, state: dict, reduce=None) -> None:
         if clip_norm:
-            g = clip_by_global_norm(g, clip_norm)
+            g = clip_by_global_norm(g, clip_norm, reduce)
         g = g.float()
         t = state["t"]
         t.add_(1)

@@ -340,7 +340,6 @@ res["err/hier"] = message(lambda: rounds.make_aggregator(
 res["err/secure"] = message(lambda: rounds.make_aggregator(cfg, fed(aggregation="secure"), mesh))
 res["err/quant4"] = message(lambda: rounds.make_aggregator(cfg, fed(aggregation="quant4"), mesh))
 res["err/clients"] = message(lambda: rounds.build_fed_round(cfg, fed(n_clients=3, aggregation="dense"), sgd(), mesh))
-res["err/fedsgd"] = message(lambda: rounds.build_fed_round(cfg, fed(aggregation="fedsgd"), sgd(), mesh))
 # a server round: every rank reports the same loss and dispatches row 0
 f = fed(aggregation="dense", participation="masked")
 server = FLServer(cfg, f, sgd(lr=0.05), device="cpu", mesh=mesh)
@@ -436,7 +435,6 @@ def test_two_ranks_gather_the_int8_payload_bitwise(two_ranks):
                r"\(got 2\)"),
     ("clients", "ValueError: sharded client axis: n_clients=3 must be divisible by the 'data' "
                 r"mesh axis \(2 shards\)"),
-    ("fedsgd", "NotImplementedError: fedsgd over a sharded client axis"),
 ])
 def test_two_ranks_refuse_what_cannot_shard(case, match, two_ranks):
     import re

@@ -338,7 +338,7 @@ def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="slice 9"):
         rounds.make_aggregator(TCFG, _fed("torch", state_layout="tree"))
     # fedsgd, compact participation and the client mesh are ported
-    # (tests/test_torch_participation.py); a mesh that shards the flat dim is not
+    # (tests/test_torch_participation.py)
     for kw in (dict(aggregation="fedsgd"), dict(participation="compact")):
         assert rounds.make_aggregator(TCFG, _fed("torch", **kw)).ctx.fed == _fed("torch", **kw)
     # microbatches are ported (tests/test_torch_lm_train.py), and so is
@@ -349,9 +349,11 @@ def test_unported_configurations_raise():
         rounds.make_aggregator(TCFG, _fed("torch", microbatches=0))
     with pytest.raises(ValueError, match="the port has"):
         rounds.make_aggregator(TCFG, _fed("torch", aggregation="no_such_mode"))
-    model_axis = SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        rounds.build_fed_round(TCFG, _fed("torch"), sgd(), mesh=model_axis)
+    # and so is a mesh whose model axis shards the flat dim: the round builds
+    # on one (tests/test_torch_sharded.py runs it on 2 and 4 ranks)
+    model_axis = SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d],
+                                 get_local_rank=lambda d: 0)
+    assert callable(rounds.build_fed_round(TCFG, _fed("torch"), sgd(), mesh=model_axis))
     # idx rides only under compact participation
     assert "idx" not in rounds.participation_input(_fed("torch"), np.ones(C), np.ones(C) / C,
                                                    idx=np.arange(C))
