@@ -21,7 +21,8 @@ recorded every launch made; where no trace does, the kernels line says
    (served), (3, 33) (a word edge), (8, 64) (eval), (64, 100), (4, 1024)
    (the bitmask kernel's largest) and (2, 2048) (the scan kernel's). Keep
    masks must be bitwise equal (tolerance: none), the whole NMS and the
-   keep mask alone. Median times over 20 launches, CUDA events.
+   keep mask alone. Median times over 20 launches, CUDA events (the plain
+   scan at N 1024 and 2048: 3 launches after one warm-up).
 3. Serving at full width: fedyolov3 (5 stages, widths 64..1024, 13.3 M
    params, random weights from seed 0) at 416x416, serve_batch 8, 16
    detections per image, behind ``InferenceService``; 8 concurrent
@@ -312,6 +313,22 @@ recorded every launch made; where no trace does, the kernels line says
    against rank 0's meshless run at rtol 1e-5. (c) In this process, while
    the ranks run: the launcher's 1 x 1 NCCL mesh, one fedsgd round and one
    buffered flush bitwise equal to meshless.
+19. The legacy tree layout (``FedConfig(state_layout="tree")``: client-stacked
+   param trees, pack -> train -> aggregate -> unpack each round), each run
+   from the same seed-0 state as a flat twin and held to it bitwise
+   (params, moments, aggregator state, losses). (a) fedyolov3 at full
+   width, img 416, C 3, batch 2, sgd 0.05, 2 rounds through ``FLServer``
+   each of dense, eq6 (top 4), static_topn (top 2), quant8 on the
+   launcher's 1 x 1 NCCL mesh (K5a) and quant8 without a mesh (K4): K1
+   exactly once a dense, eq6 and static_topn round, K5a and K4 once a
+   quant8 round; ms a round and the peak of both layouts. (b) qwen3-1.7b
+   at its widths cut to 2 layers (N 411,838,976), C 2, 1 x 128, sgd 0.05,
+   2 rounds of eq6 (top 2) and of static_topn (top 2) through
+   ``build_fed_round``; then ``core.fedavg.aggregate_eq6`` and
+   ``aggregate_quant8`` on the card against the packed eq6 (K1) and
+   quant8 (K4) aggregators on one input: eq6 within 1e-5 with the same
+   upload choices and sums within rtol 1e-5 / atol 1e-3, quant8 within two
+   quantization steps (the CPU tests' bounds).
 
 The line before the last is the kernel summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -767,7 +784,10 @@ def phase2(dev, card: str) -> int:
             torch.cuda.synchronize()
             check(same_bits(keep_k, keep_p), f"nms_keep {kind} B={B} N={N}: kernel != plain")
             k_ms = time_ms(lambda: detect.nms_keep(boxes_s, valid_s, iou))
-            p_ms = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, iou), reps=20 if N <= 1024 else 3)
+            # the plain scan at N >= 1024 takes 0.3-0.7 s a call on the host's clock: 3 timed
+            # calls after one warm-up keep phase 2 near a minute
+            p_ms = time_ms(lambda: ref.nms_keep(boxes_s, valid_s, iou),
+                           **(dict(reps=20) if N < 1024 else dict(reps=3, warmup=1)))
             n_cases += 1
             print(f"phase2 {kind:14s} B={B:3d} N={N:5d} kept={int(kern.sum()):5d} bitwise-equal "
                   f"({'bitmask' if N <= NMS_MASK_MAX_N else 'scan'}) kernel_ms={k_ms:.4f} "
@@ -4190,6 +4210,210 @@ def phase18(dev, card: str) -> None:
     say(f"phase18 {time.perf_counter() - t0:.1f} s", card)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the legacy tree layout
+# ---------------------------------------------------------------------------
+
+TREE_ROUNDS = 2
+# (mode, FedConfig overrides, on the launcher's 1 x 1 mesh)
+TREE_YOLO = [("dense", {}, False), ("eq6", dict(topn=4), False), ("static_topn", dict(topn=2), False),
+             ("quant8", {}, True), ("quant8", {}, False)]
+TREE_LM = dict(layers=2, clients=2, seq=128, lr=0.05, topn=2)
+TREE_COUNTED = ("packed_bucket_reduce", "quant8_reduce", "quantize_rows")
+
+
+def tree_twins(runs: dict, tag: str) -> None:
+    """Fail unless the tree run equals its flat twin bit for bit: params,
+    every moment, every aggregator state leaf, each round's loss."""
+    from repro_torch.models.params import flatten_with_paths
+
+    flat, tree = runs["flat"], runs["tree"]
+    check(same_bits(tree["params"], flat["params"]), f"{tag}: tree params != flat params")
+    check(tree["opt"].keys() == flat["opt"].keys(), f"{tag}: optimizer keys differ")
+    for k, v in flat["opt"].items():
+        check(same_bits(tree["opt"][k], v), f"{tag}: tree {k} != flat {k}")
+    leaves = [dict(flatten_with_paths(r["agg"])) for r in (flat, tree)]
+    check(leaves[0].keys() == leaves[1].keys(), f"{tag}: aggregator state keys differ")
+    for path, v in leaves[0].items():
+        x, y = torch.as_tensor(leaves[1][path]), torch.as_tensor(v)
+        check(same_bits(x, y) if y.dtype == torch.float32 else torch.equal(x, y),
+              f"{tag}: aggregator state {path} differs")
+    check(tree["losses"] == flat["losses"], f"{tag}: losses {tree['losses']} != {flat['losses']}")
+
+
+def phase19a(dev, card: str) -> dict:
+    """fedyolov3 at full width through ``FLServer``, tree against flat. ->
+    the tree rounds' launches of K1, K4 and K5a."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.core.server import FLServer
+    from repro_torch.data.pipeline import detection_suite
+    from repro_torch.kernels import pack
+    from repro_torch.launch import train
+    from repro_torch.optim import sgd
+
+    cfg = get_arch("fedyolov3")
+    counters = {k: getattr(pack, k) for k in TREE_COUNTED}
+    total = dict.fromkeys(TREE_COUNTED, 0)
+    batches = None
+    for mode, kw, on_mesh in TREE_YOLO:
+        runs = {}
+        for layout in ("flat", "tree"):
+            fed = FedConfig(n_clients=3, aggregation=mode, agg_impl="kernel", client_axis="data",
+                            data_axis=None, state_layout=layout, **kw)
+            if batches is None:
+                gen, _, _ = detection_suite(cfg, fed, batch=2, img_size=IMG, pool_scenes=24)
+                batches = [next(gen) for _ in range(TREE_ROUNDS)]
+            srv = FLServer(cfg, fed, sgd(0.05), seed=0, device=dev,
+                           mesh=train.client_mesh(dev) if on_mesh else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            ms, losses = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                losses.append(srv.run_round(b).loss)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            state = rounds.flat_state(srv.aggregator, srv.state) if layout == "tree" else srv.state
+            runs[layout] = {**state, "losses": losses, "ms": ms,
+                            "launches": {k: fn.launches for k, fn in counters.items()},
+                            "peak": torch.cuda.max_memory_allocated() / 2**30}
+            del srv, state
+        tag = f"phase19a {mode}" + (" on the 1 x 1 mesh" if on_mesh else "")
+        tree_twins(runs, tag)
+        n = runs["tree"]["launches"]
+        want = {"packed_bucket_reduce": 0, "quant8_reduce": 0, "quantize_rows": 0}
+        want["quantize_rows" if on_mesh else "quant8_reduce" if mode == "quant8"
+             else "packed_bucket_reduce"] = TREE_ROUNDS
+        check(n == want and runs["flat"]["launches"] == want,
+              f"{tag}: launches tree {n}, flat {runs['flat']['launches']}, want {want}")
+        for k in TREE_COUNTED:
+            total[k] += n[k]
+        print(f"{tag}: tree == flat bitwise over {TREE_ROUNDS} rounds (params, moments, agg "
+              f"state, losses {' '.join(repr(x) for x in runs['tree']['losses'])}); ms per round "
+              f"tree {' '.join(f'{t:.3f}' for t in runs['tree']['ms'])} flat "
+              f"{' '.join(f'{t:.3f}' for t in runs['flat']['ms'])}; peak tree "
+              f"{runs['tree']['peak']:.3f} GiB flat {runs['flat']['peak']:.3f} GiB; launches {n}"
+              f"  [{card}]", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase19b(dev, card: str) -> int:
+    """qwen3-1.7b, 2 layers at full width: tree rounds against flat, then
+    ``core.fedavg`` on the card against the packed aggregators. -> the tree
+    rounds' K1 launches."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core import fedavg, packing, rounds
+    from repro_torch.core.rounds import FedConfig
+    from repro_torch.kernels import pack
+    from repro_torch.optim import sgd
+
+    cfg, C = family_cfg("qwen3-1.7b", TREE_LM["layers"]), TREE_LM["clients"]
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (C, 1, 1, TREE_LM["seq"])))
+                .to(dev)} for _ in range(TREE_ROUNDS)]
+    w = rounds.uniform_weights(C).to(dev)
+    total = 0
+    for mode in ("eq6", "static_topn"):
+        runs = {}
+        for layout in ("flat", "tree"):
+            fed = FedConfig(n_clients=C, aggregation=mode, topn=TREE_LM["topn"], agg_impl="kernel",
+                            state_layout=layout)
+            opt = sgd(TREE_LM["lr"])
+            agg = rounds.make_aggregator(cfg, fed)
+            state = rounds.make_state(cfg, fed, opt, rounds.seed_generator(cfg, 0, dev), dev)
+            fr = rounds.build_fed_round(cfg, fed, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pack.packed_bucket_reduce.launches = 0
+            ms, losses = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = fr(state, b, w)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            flat = rounds.flat_state(agg, state) if layout == "tree" else state
+            runs[layout] = {**flat, "losses": losses, "ms": ms,
+                            "launches": pack.packed_bucket_reduce.launches,
+                            "peak": torch.cuda.max_memory_allocated() / 2**30}
+            del state, flat
+        N = agg.ctx.spec.n_total
+        check(N == 411_838_976, f"phase19b N {N}")
+        tree_twins(runs, f"phase19b {mode}")
+        n = runs["tree"]["launches"]
+        check(n == runs["flat"]["launches"] == TREE_ROUNDS,
+              f"phase19b {mode}: K1 launched {n} (tree), {runs['flat']['launches']} (flat)")
+        total += n
+        print(f"phase19b qwen3-1.7b 2 layers (N {N}) {mode} C {C} 1 x {TREE_LM['seq']}: tree == "
+              f"flat bitwise over {TREE_ROUNDS} rounds (losses "
+              f"{' '.join(repr(x) for x in runs['tree']['losses'])}); ms per round tree "
+              f"{' '.join(f'{t:.3f}' for t in runs['tree']['ms'])} flat "
+              f"{' '.join(f'{t:.3f}' for t in runs['flat']['ms'])}; peak tree "
+              f"{runs['tree']['peak']:.3f} GiB flat {runs['flat']['peak']:.3f} GiB; K1 {n}"
+              f"  [{card}]", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+
+    # core.fedavg on the card against the packed aggregators, one input
+    eq6 = rounds.make_aggregator(cfg, FedConfig(n_clients=C, aggregation="eq6", topn=TREE_LM["topn"],
+                                                agg_impl="kernel"))
+    spec, tpl = eq6.ctx.spec, eq6.ctx.template
+    base_rows = rounds.initial_row(eq6, rounds.seed_generator(cfg, 0, dev), dev).expand(C, -1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = base_rows + 0.01 * torch.randn(base_rows.shape, generator=g, device=dev)
+    base, stacked = packing.unpack(spec, base_rows, tpl), packing.unpack(spec, rows, tpl)
+    w = torch.tensor([0.6, 0.4], device=dev)
+    t0 = time.perf_counter()
+    prev = comp.layer_sums(cfg, tpl, base)
+    legacy, sums = fedavg.aggregate_eq6(cfg, tpl, stacked, w, prev, TREE_LM["topn"])
+    legacy = packing.pack(spec, legacy)
+    torch.cuda.synchronize()
+    eq6_ms = (time.perf_counter() - t0) * 1e3
+    st0 = eq6.init_state(base_rows)
+    out, st1 = eq6.aggregate(rows.clone(), w, st0)
+    gap = float((legacy - out).abs().max())
+    choice = lambda p, s: comp.topn_mask(comp.contribution_scores(p, s), TREE_LM["topn"])
+    check(gap < 1e-5, f"phase19b fedavg eq6 vs packed eq6: max abs gap {gap:.3e}")
+    check(torch.equal(choice(prev, sums), choice(st0["prev_sums"], st1["prev_sums"])),
+          "phase19b fedavg eq6's upload choices != the packed eq6's")
+    check(torch.allclose(sums, st1["prev_sums"], rtol=1e-5, atol=1e-3),
+          "phase19b fedavg eq6's sums != the packed eq6's")
+    del legacy, out
+    q8 = rounds.make_aggregator(cfg, FedConfig(n_clients=C, aggregation="quant8", agg_impl="kernel"))
+    w = rounds.uniform_weights(C).to(dev)
+    t0 = time.perf_counter()
+    legacy = packing.pack(spec, fedavg.aggregate_quant8(stacked, base, w))
+    torch.cuda.synchronize()
+    q8_ms = (time.perf_counter() - t0) * 1e3
+    out, _ = q8.aggregate(rows.clone(), w, {"base": base_rows[0].clone()})
+    step = float((rows - base_rows).abs().max()) / 127.0
+    qgap = float((legacy - out).abs().max())
+    check(qgap < 2 * step + 1e-7, f"phase19b fedavg quant8 vs packed quant8: gap {qgap:.3e} "
+                                  f"(step {step:.3e})")
+    print(f"phase19b core.fedavg on the card, (C {C}, N {spec.n_total}): aggregate_eq6 {eq6_ms:.1f} "
+          f"ms, max abs gap {gap:.3e} to the packed eq6 (K1), the same upload choices; "
+          f"aggregate_quant8 {q8_ms:.1f} ms, gap {qgap:.3e} to the packed quant8 (K4), one step "
+          f"{step:.3e}  [{card}]", flush=True)
+    del base, stacked, legacy, out, rows, base_rows
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase19(dev, card: str) -> dict:
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = phase19a(dev, card)
+    launches["packed_bucket_reduce"] += phase19b(dev, card)
+    print(f"phase19 {time.perf_counter() - t0:.1f} s; tree rounds' launches {launches}  [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
@@ -4433,6 +4657,13 @@ def main() -> None:
     mark("phase 18")
     phase18(dev, card)
 
+    # ---- phase 19: the legacy tree layout -----------------------------------
+    mark("phase 19")
+    tree = phase19(dev, card)
+    tree_path = (f"phase 19: {TREE_ROUNDS} tree rounds per mode, fedyolov3 full width (dense, "
+                 f"eq6, static_topn, quant8 on the 1 x 1 mesh and without one) and qwen3-1.7b at "
+                 f"2 layers (eq6, static_topn)")
+
     def entry(name, source, replaces, launches, st, **extra):
         keys = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "cases")
@@ -4480,13 +4711,15 @@ def main() -> None:
                                  f"the shared clock's {CLOCK_SYNC_ROUNDS} rounds and "
                                  f"{CLOCK_FLUSHES} flushes, the quickstart's "
                                  f"{PLATFORM_QUICKSTART_ROUNDS} rounds"},
-              platform_shapes=platform["k1_shapes"]),
+              platform_shapes=platform["k1_shapes"],
+              launches_tree={"rounds": tree["packed_bucket_reduce"], "main_path": tree_path}),
         entry("pairwise_iou", "iou.cu", "detect.py:111", train_launches["pairwise_iou"],
               k_stats["pairwise_iou"], launch_floor_ms=floor_ms, launch_floor_ms_from=floor_from),
         entry("quant8_reduce", "quant_reduce.cu", "pack.py:285", uplink_launches["quant8_reduce"],
               k_stats["quant8_reduce"], main_path=f"FLServer quant8 without a client mesh, "
               f"{uplink_launches['quant8_meshless_rounds']} rounds",
-              flushed_l2_device_ms=k_stats["quant8_reduce"]["flushed_l2_device_ms"]),
+              flushed_l2_device_ms=k_stats["quant8_reduce"]["flushed_l2_device_ms"],
+              launches_tree={"rounds": tree["quant8_reduce"], "main_path": tree_path}),
         entry("grouped_reduce", "grouped_reduce.cu", "pack.py:342", uplink_launches["grouped_reduce"],
               k_stats["grouped_reduce"], main_path=uplink["hier"]),
         entry("quant4_reduce", "quant_reduce.cu", "quant4.py:101", uplink_launches["quant4_reduce"],
@@ -4507,7 +4740,8 @@ def main() -> None:
               k_stats["quantize_rows"], launches_compact=compact_launches["quant8"]["quantize_rows"],
               flushed_l2_device_ms=k_stats["quantize_rows"]["flushed_l2_device_ms"],
               main_path=f"--agg quant8 on the launcher's 1 x 1 mesh, "
-              f"{uplink_launches['quant8_rounds']} rounds"),
+              f"{uplink_launches['quant8_rounds']} rounds",
+              launches_tree={"rounds": tree["quantize_rows"], "main_path": tree_path}),
         entry("dequantize_rows", "row_quant.cu", "pack.py:231", uplink_launches["dequantize_rows"],
               k_stats["dequantize_rows"], launches_compact=compact_launches["quant8"]["dequantize_rows"],
               main_path="none: no round decodes the payload row-wise (the reference's tests only); "

@@ -58,8 +58,19 @@ N_total, the flat dim stays whole on every model rank and only the batch
 splits. fedsgd treats the client axis as data-parallel ranks too: each
 takes its clients' part of the merged batch and the gradient is summed
 over both axes, so the one shared copy steps identically on every rank.
-Every collective goes through ``core.collectives``. The tree layout
-(slice 9) raises ``NotImplementedError``.
+Every collective goes through ``core.collectives``.
+
+``FedConfig.state_layout="tree"`` is the legacy engine the reference keeps
+as its numerical reference: ``state["params"]`` is a client-stacked param
+tree ((C, *shape) leaves in the template's layout; under a client mesh the
+rank's C/S clients) and each optimizer moment a tree like it; fedsgd keeps
+its one shared tree. Each round packs the trees into the flat round's rows,
+runs the flat round on them (the same trainer, participation paths and
+``aggregate_sharded``) and unpacks the result, so a tree round equals the
+flat round bit for bit. The leaves stay whole on every model rank: a
+``"model"`` axis splits only the step's batch, as in the flat engine's
+case where the axis does not divide N_total. The async engines refuse
+this layout, as the reference's do.
 
 For the launch plans (``launch.specs``), :func:`state_template` gives the
 round state on the ``meta`` device (shapes, no memory) and
@@ -105,7 +116,7 @@ class FedConfig:
     trim_ratio: float = 0.25  # trimmed_mean: fraction trimmed per side (>=1 client)
     participation: str = "full"  # full | masked | compact (DESIGN.md §8)
     max_participants: int = 0  # compact: static per-round budget K (0 -> C)
-    state_layout: str = "flat"  # flat (packed (C,N) round state) | tree (legacy reference)
+    state_layout: str = "flat"  # flat (packed (C,N) round state) | tree (client-stacked param trees)
     mode: str = "sync"  # sync | async (buffered FedBuff-style engine, DESIGN.md §12)
     buffer_size: int = 0  # async: K_buf staged updates per flush (0 -> n_clients)
     staleness_alpha: float = 0.5  # async: polynomial staleness discount (1+s)^-alpha
@@ -154,28 +165,34 @@ def make_template(cfg) -> PyTree:
 def make_aggregator(cfg, fed: FedConfig, mesh=None) -> aggregators.Aggregator:
     """Resolve ``FedConfig.aggregation`` through the registry (unknown names
     and configurations the port does not run yet fail here)."""
-    _check_ported(fed)
+    _check_config(fed)
     if mesh is not None and fed.client_axis not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"client_axis={fed.client_axis!r} is not a dim of the mesh "
                          f"{mesh.mesh_dim_names}")
     tpl = make_template(cfg)
     spec = packing.build_pack_spec(cfg, tpl)
-    cols = packing.packed_cols(spec.n_total, mesh)
+    cols = state_cols(fed, spec.n_total, mesh)
     ctx = aggregators.AggContext(cfg=cfg, fed=fed, template=tpl, spec=spec, mesh=mesh,
                                  cols=cols if packing.is_block(cols, spec.n_total) else None,
                                  cols_mesh=mesh)
     return aggregators.get(fed.aggregation)(ctx)
 
 
-def _check_ported(fed: FedConfig) -> None:
-    if fed.state_layout == "tree":
-        raise NotImplementedError("state_layout='tree' (the legacy reference path) is slice 9")
-    if fed.state_layout != "flat":
+def _check_config(fed: FedConfig) -> None:
+    if fed.state_layout not in ("flat", "tree"):
         raise ValueError(f"unknown state_layout {fed.state_layout!r}; expected flat|tree")
     if fed.microbatches < 1:
         raise ValueError(f"microbatches={fed.microbatches} must be >= 1")
     if fed.agg_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown agg_impl {fed.agg_impl!r}; expected ref|kernel")
+
+
+def state_cols(fed: FedConfig, n_total: int, mesh=None) -> slice:
+    """The flat dim's block this rank holds: ``packing.packed_cols`` under
+    the flat layout; the tree layout keeps every leaf whole on every rank."""
+    if fed.state_layout == "tree":
+        return slice(0, n_total)
+    return packing.packed_cols(n_total, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +217,12 @@ def state_template(cfg, fed: FedConfig, optimizer: Optimizer, dtype: torch.dtype
     n = agg.ctx.spec.n_total
     packed = torch.empty((fed.n_clients, n), dtype=dtype, device="meta")
     if not agg.stacked:
-        return {"params": packed[0], "opt": {k: v[0] for k, v in optimizer.init(packed[:1]).items()},
-                "agg": {}, "round": 0}
-    return {"params": packed, "opt": optimizer.init(packed), "agg": agg.init_state(packed),
-            "round": 0}
+        state = {"params": packed[0], "agg": {}, "round": 0,
+                 "opt": {k: v[0] for k, v in optimizer.init(packed[:1]).items()}}
+    else:
+        state = {"params": packed, "opt": optimizer.init(packed), "agg": agg.init_state(packed),
+                 "round": 0}
+    return _in_layout(fed, agg, state)
 
 
 def state_pspecs(cfg, fed: FedConfig, optimizer: Optimizer, rules: dict | None = None,
@@ -214,7 +233,11 @@ def state_pspecs(cfg, fed: FedConfig, optimizer: Optimizer, rules: dict | None =
     agg = make_aggregator(cfg, fed)
     tpl = agg.ctx.template
     mrules = opt_rules if opt_rules else rules
-    if not agg.stacked:
+    if fed.state_layout == "tree":  # the reference's per-leaf trees
+        lead = (fed.client_axis,) if agg.stacked else ()
+        pspec = mp.map_tree(lambda s: mp.Spec(*lead, *s), mp.pspecs(tpl, rules, axis_sizes))
+        mspec = mp.map_tree(lambda s: mp.Spec(*lead, *s), mp.pspecs(tpl, mrules, axis_sizes))
+    elif not agg.stacked:
         pspec = packing.SegmentSpec.of(tpl, mp.Spec(), rules, axis_sizes)
         mspec = packing.SegmentSpec.of(tpl, mp.Spec(), mrules, axis_sizes)
     else:
@@ -223,7 +246,7 @@ def state_pspecs(cfg, fed: FedConfig, optimizer: Optimizer, rules: dict | None =
     moments = optimizer.init(torch.empty((1, 0), device="meta"))
     return {
         "params": pspec,
-        "opt": {k: (mspec if k in ("mu", "m", "v") else mp.Spec()) for k in moments},
+        "opt": {k: (mspec if k in MOMENTS else mp.Spec()) for k in moments},
         "agg": agg.state_pspecs(axis_sizes) if agg.stacked else {},
         "round": mp.Spec(),
     }
@@ -263,23 +286,70 @@ def make_state(cfg, fed: FedConfig, optimizer: Optimizer, generator: torch.Gener
     the flat dim, each of those is the rank's column block
     (``packing.packed_block``), as is each aggregator buffer along the flat
     dim, copied out so that no rank holds another's part. Parity with the
-    reference comes from carrying its state over (``models.convert``)."""
+    reference comes from carrying its state over (``models.convert``).
+
+    Under ``state_layout="tree"`` the same state comes as trees: the packed
+    rows and each moment buffer unpacked into client-stacked trees in the
+    template's layout (fedsgd: the one shared tree), the aggregator state
+    as it is, packed from the initial params (empty for an aggregator that
+    keeps none)."""
     from repro_torch import device as D
 
     dev = D.resolve(device)
     agg = make_aggregator(cfg, fed, mesh)
     row = initial_row(agg, generator, dev, dtype)
-    rows, cols = packing.packed_block(fed.n_clients, agg.ctx.spec.n_total, fed.client_axis, mesh)
+    rows = packing.packed_pspec(fed.n_clients, fed.client_axis, mesh)
+    cols = state_cols(fed, agg.ctx.spec.n_total, mesh)
     if not agg.stacked:
         shared = row[:, cols].clone()
-        return {"params": shared[0], "opt": {k: v[0] for k, v in optimizer.init(shared).items()},
-                "agg": {}, "round": 0}
+        state = {"params": shared[0], "agg": {}, "round": 0,
+                 "opt": {k: v[0] for k, v in optimizer.init(shared).items()}}
+        return _in_layout(fed, agg, state)
     full = row.expand(fed.n_clients, -1)  # a view: every client holds the dispatch
     packed = full[rows, cols].clone(memory_format=torch.contiguous_format)
     agg_state = agg.init_state(full)
     if mesh is not None:
         agg_state = agg.state_block(agg_state, rows, cols)
-    return {"params": packed, "opt": optimizer.init(packed), "agg": agg_state, "round": 0}
+    state = {"params": packed, "opt": optimizer.init(packed), "agg": agg_state, "round": 0}
+    return _in_layout(fed, agg, state)
+
+
+MOMENTS = ("mu", "m", "v")  # the optimizer state keys shaped like the params
+
+
+def rows_to_tree(spec: packing.PackSpec, rows: torch.Tensor, like: PyTree,
+                  stacked: bool) -> PyTree:
+    """Packed (C, N_total) rows -> a client-stacked tree of copies shaped
+    like ``like``; fedsgd's one (N_total,) row -> its unstacked tree."""
+    if stacked:
+        return packing.unpack(spec, rows, like)
+    return mp.map_tree(lambda x: x[0], packing.unpack(spec, rows[None], like))
+
+
+def tree_to_rows(spec: packing.PackSpec, tree: PyTree, stacked: bool) -> torch.Tensor:
+    """Inverse of :func:`rows_to_tree`."""
+    if stacked:
+        return packing.pack(spec, tree)
+    return packing.pack(spec, mp.map_tree(lambda x: x[None], tree))[0]
+
+
+def _in_layout(fed: FedConfig, agg: aggregators.Aggregator, state: PyTree) -> PyTree:
+    """A flat state -> the same state in ``fed.state_layout``: under
+    ``"tree"`` the params and every moment buffer as trees."""
+    if fed.state_layout != "tree":
+        return state
+    spec, tpl = agg.ctx.spec, agg.ctx.template
+    as_tree = lambda rows: rows_to_tree(spec, rows, tpl, agg.stacked)
+    return {**state, "params": as_tree(state["params"]),
+            "opt": {k: as_tree(v) if k in MOMENTS else v for k, v in state["opt"].items()}}
+
+
+def flat_state(agg: aggregators.Aggregator, state: PyTree) -> PyTree:
+    """A tree state -> the flat state of the same numbers (one copy): what
+    the tree round trains, and how a tree state compares with a flat one."""
+    as_rows = lambda tree: tree_to_rows(agg.ctx.spec, tree, agg.stacked)
+    return {**state, "params": as_rows(state["params"]),
+            "opt": {k: as_rows(v) if k in MOMENTS else v for k, v in state["opt"].items()}}
 
 
 def state_bytes(state: PyTree) -> dict[str, int]:
@@ -314,10 +384,13 @@ def is_stateless(optimizer: Optimizer) -> bool:
 def unpacked_params(cfg, fed: FedConfig, state: PyTree) -> PyTree:
     """Edge helper: the param tree of a flat state (one copy; HWIO for
     fedyolov3, the template's layout for an LM), client-stacked for a
-    stacked topology and the one shared tree for fedsgd."""
+    stacked topology and the one shared tree for fedsgd. A tree state's
+    params pass through."""
+    params = state["params"]
+    if not isinstance(params, torch.Tensor):
+        return params
     tpl = make_template(cfg)
     spec = packing.build_pack_spec(cfg, tpl)
-    params = state["params"]
     if params.dim() == 1:  # fedsgd: one shared row
         return mp.map_tree(lambda x: x[0], packing.unpack(spec, params[None], tpl))
     return packing.unpack(spec, params, tpl)
@@ -412,7 +485,7 @@ def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
     ``mesh``: the step's batch splits over the P data-parallel ranks, the M
     of the ``"model"`` dim (and with ``shared``, fedsgd's one shared copy,
     the S of the client axis as well: rank (s, j) takes part ``s M + j``).
-    Where the model axis splits the flat dim (``packing.packed_cols``) the
+    Where the model axis splits the flat dim (:func:`state_cols`) the
     row and its optimizer rows are the rank's column block, and each step
     is FSDP over the flat dim: the client's whole row is all-gathered into
     one reused (N_total,) buffer, ``grads_of`` runs on the rank's part of
@@ -431,7 +504,7 @@ def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
     spec = packing.build_pack_spec(cfg, tpl)
     loss_fn = loss_for(cfg)
     N = spec.n_total
-    cols = packing.packed_cols(N, mesh)
+    cols = state_cols(fed, N, mesh)
     blocked = packing.is_block(cols, N)
     M = packing.mesh_axis_size(mesh, "model")
     S = packing.mesh_axis_size(mesh, fed.client_axis) if shared else 1
@@ -548,6 +621,10 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
 
     mesh: a ``torch.distributed`` ``DeviceMesh`` with a dim named
     ``fed.client_axis`` (module docstring), or None.
+
+    ``fed.state_layout`` picks the engine: ``"flat"`` trains the packed
+    round state in place; ``"tree"`` packs the tree state, runs the flat
+    round on it and unpacks the result (:func:`_tree_round`).
     """
     if fed.mode != "sync":
         # this builder always emits the synchronous round; the buffered
@@ -611,6 +688,23 @@ def build_fed_round(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None) -> Cal
         packed, agg_state = aggregate_sharded(agg, packed, weights, state["agg"], mask_d)
         out = {**state, "params": packed, "agg": agg_state, "round": state["round"] + 1}
         return out, round_metrics(loss, mask_d)
+
+    if fed.state_layout == "tree":
+        return _tree_round(agg, fed, fed_round)
+    return fed_round
+
+
+def _tree_round(agg: aggregators.Aggregator, fed: FedConfig, flat_round: Callable) -> Callable:
+    """The legacy engine over a tree state: pack -> train -> aggregate ->
+    unpack each round. The params and moment trees pack into one flat state
+    (a copy), ``flat_round`` trains and aggregates it in place, and its
+    rows unpack into the new trees, so the numbers are the flat round's
+    bit for bit. The reference shares its trainer between the two layouts
+    the same way (``_local_training``)."""
+
+    def fed_round(state: PyTree, batch: PyTree, part):
+        out, metrics = flat_round(flat_state(agg, state), batch, part)
+        return _in_layout(fed, agg, out), metrics
 
     return fed_round
 

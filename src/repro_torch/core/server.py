@@ -54,6 +54,7 @@ from repro_torch.core.async_engine import (AsyncRoundRecord, BufferedAsyncEngine
                                            default_upload_terms, sync_round_seconds)
 from repro_torch.core.scheduler import SchedulerConfig, TaskScheduler
 from repro_torch.core.simclock import SimClock
+from repro_torch.models import params as mp
 from repro_torch.models.yolov3 import FedYOLOv3
 from repro_torch.optim import Optimizer
 
@@ -161,17 +162,23 @@ class FLServer:
         the whole model). An async state only guarantees some rows hold the
         fresh global, so this reads the engine's ``global_packed_row()``,
         never a fixed row. This is the pack/unpack edge: checkpoint PUT,
-        evaluation and dispatch to serving."""
+        evaluation and dispatch to serving. A tree state's global is row 0
+        of each leaf (fedsgd: its shared tree), packed into one row."""
         if self.engine is not None:
             row = self.engine.global_packed_row()  # whole on every rank
         else:
-            row = self.state["params"] if not self.aggregator.stacked else self._row0()
+            params = self.state["params"]
+            if self.fed.state_layout == "tree":  # the leaves' row 0 (fedsgd: the tree), packed
+                if self.aggregator.stacked:
+                    params = mp.map_tree(lambda x: x[:1], params)
+                params = rounds.tree_to_rows(self.aggregator.ctx.spec, params,
+                                             self.aggregator.stacked)
+            row = params if not self.aggregator.stacked else self._row0(params)
             if self.aggregator.ctx.cols is not None:
                 row = collectives.all_gather(row, self.mesh, "model")
         return rounds.global_model(self.cfg, row, self.device)
 
-    def _row0(self) -> torch.Tensor:
-        packed = self.state["params"]
+    def _row0(self, packed: torch.Tensor) -> torch.Tensor:
         axis = self.fed.client_axis
         if packing.mesh_axis_size(self.mesh, axis) == 1:
             return packed[0]

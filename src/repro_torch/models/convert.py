@@ -18,6 +18,10 @@ buffers; its ``rows`` and ``cols`` arguments keep one rank's block of a
 mesh (``core.packing.packed_block``): the rows of a sharded client axis and
 the column block of a model axis that splits the flat dim. :func:`fedsgd_state_from_reference` carries the fedsgd
 topology's one shared tree and its moments into the one packed row.
+:func:`tree_state_from_reference` and :func:`tree_state_to_reference` carry
+a ``state_layout="tree"`` state's params and optimizer state, whose trees
+are in the same layout in both packages (HWIO for fedyolov3), so only the
+container changes.
 :func:`agg_state_from_reference`
 and :func:`agg_state_to_reference` carry ``state["agg"]``: its rows
 (``base``, ``global``, ``ef``, ``prev_sums``, the server optimizer's
@@ -147,6 +151,25 @@ def state_to_reference(cfg, packed: torch.Tensor, opt: dict):
             out[k] = to_np(v)
     return to_np(packed), out
 
+
+def tree_state_from_reference(params: PyTree, opt: dict, device: str | torch.device = "cpu",
+                              rows: slice | None = slice(None)):
+    """The reference's tree state -> (params tree, opt dict) of tensors.
+
+    params: ``state["params"]``, a client-stacked tree of (C, *shape)
+    arrays; opt: ``state["opt"]``, each moment a tree like it (adamw's
+    ``t`` a (C,) array). ``rows`` keeps a block of clients (a rank's
+    ``packing.packed_pspec``); fedsgd's unstacked trees take ``rows=None``.
+    Same dtypes and bits."""
+    cut = (lambda a: a) if rows is None else (lambda a: a[rows])
+    as_t = lambda x: torch.tensor(cut(np.asarray(x)), device=device)
+    return map_tree(as_t, params), {k: map_tree(as_t, v) for k, v in opt.items()}
+
+
+def tree_state_to_reference(params: PyTree, opt: dict):
+    """Inverse of :func:`tree_state_from_reference`: trees of NumPy arrays."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    return map_tree(to_np, params), {k: map_tree(to_np, v) for k, v in opt.items()}
 
 
 def agg_state_from_reference(agg: dict, device: str | torch.device = "cpu",

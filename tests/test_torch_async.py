@@ -13,7 +13,7 @@ clients, a flush every 2 landings. Tolerances, each stated where it is used:
 - the event plane (participants, staleness, drops, simulated time, the
   discounted weights), the timing terms and the monitor's text: exact;
 - flush losses rtol 1e-5, params rtol 1e-4 / atol 1e-6 (the bounds of
-  ``tests/test_torch_train.py``'s whole rounds);
+  ``tests/test_torch_train_rounds.py``'s whole rounds);
 - a full-buffer flush against the port's own sync round, and the rows in
   flight across a flush: bitwise;
 - streaming against buffered: 1e-5 relative to the global's largest
@@ -23,6 +23,7 @@ import dataclasses
 import sys
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

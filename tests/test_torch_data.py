@@ -10,6 +10,7 @@ import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -17,6 +17,7 @@ included. The cases that run a CUDA kernel itself against its plain version
 need a card and skip without one.
 """
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

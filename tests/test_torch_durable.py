@@ -27,6 +27,7 @@ import socket
 import time
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

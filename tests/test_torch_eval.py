@@ -13,6 +13,7 @@ its mAP is held at atol 1e-6 too. The model is fedyolov3 cut to base width
 import dataclasses
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -10,8 +10,8 @@ state rebuilt from it). Tolerances:
 - the printed mapped-file count, the dirichlet split line and the COS
   rounds: exact;
 - the loss trajectory: rtol 1e-5, and the participants exactly (the
-  bounds of ``tests/test_torch_train.py``'s server rounds);
-- the mAP trajectory: atol 1e-6, as ``tests/test_torch_train.py`` holds
+  bounds of ``tests/test_torch_train_rounds.py``'s server rounds);
+- the mAP trajectory: atol 1e-6, as ``tests/test_torch_train_rounds.py`` holds
   ``evaluate_round``.
 """
 import dataclasses
@@ -19,6 +19,7 @@ import importlib.util
 import sys
 from pathlib import Path
 
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import numpy as np
 
 import jax

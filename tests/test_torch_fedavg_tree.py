@@ -12,6 +12,7 @@ the ordered chain it documents, and the wrapper against the plain version,
 are bitwise. Card-only cases carry the ``cuda`` marker.
 """
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

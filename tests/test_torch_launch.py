@@ -26,6 +26,7 @@ import dataclasses
 import json
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

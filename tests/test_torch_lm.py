@@ -21,6 +21,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -25,6 +25,7 @@ import json
 import sys
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -23,6 +23,7 @@ the reference's own ``repro.kernels.ref``; single-pass TF32 is recorded
 beside it (``record_property``), not asserted.
 """
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -17,6 +17,7 @@ Tolerances, each stated where it is used:
 import dataclasses
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

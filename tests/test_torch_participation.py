@@ -17,7 +17,7 @@ mesh (a one-rank gloo group). Tolerances, each stated where it is used:
 - compact against masked and K = C against full, inside the port: bitwise
   (the same rows train on the same batches; an all-ones mask is None);
 - fedsgd against the reference's fedsgd: the LM sgd round's params rtol
-  1e-4 / atol 1e-5 and loss rtol 1e-5 (``tests/test_torch_lm_train.py``);
+  1e-4 / atol 1e-5 and loss rtol 1e-5 (``tests/test_torch_lm_train_rounds.py``);
   against the stacked dense E = 1 round: the reference's rtol 2e-4 /
   atol 2e-5 (``tests/test_fed.py``);
 - 2 ranks over gloo against one shard: the reference's pin
@@ -31,6 +31,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

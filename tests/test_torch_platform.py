@@ -8,7 +8,7 @@ scripted tasks and seeds give the same execution order, statuses, clock
 readings, draws, lines and JSON keys (tolerance: none). The servers start
 from the reference's own initial state, carried across by
 ``models.convert``; data comes from the same NumPy seeds. Rounds are held at
-the whole-round tolerance of ``tests/test_torch_train.py``: the loss at
+the whole-round tolerance of ``tests/test_torch_train_rounds.py``: the loss at
 rtol 1e-5. The models are fedyolov3 cut to base width 8 and 3 stages at
 32x32 (as ``tests/test_torch_train.py``) and qwen3-1.7b reduced (2 layers,
 d_model 256, as ``tests/test_torch_lm_train.py``).
@@ -20,6 +20,7 @@ import json
 from types import SimpleNamespace
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

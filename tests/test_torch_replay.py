@@ -17,11 +17,11 @@ Tolerances, each stated where it is used:
   dense record: exact;
 - the port's replay of its own quant8 record: 1e-5, the replay contract;
 - the port against the reference (row update, replayed globals): params
-  rtol 1e-4 / atol 1e-6 and losses rtol 1e-5 (``tests/test_torch_train.py``'s
+  rtol 1e-4 / atol 1e-6 and losses rtol 1e-5 (``tests/test_torch_train_rounds.py``'s
   round bounds; the two packages' training rounds differently in f32).
   Under quant8 that 1e-7 training gap flips a delta's rounding decision
   that sits on a half step (measured: 5 elements of 107,072), as it does
-  in ``tests/test_torch_aggregation.py``'s rounds: at most 1 element in
+  in ``tests/test_torch_aggregation_rounds.py``'s rounds: at most 1 element in
   10^4 may then differ, by at most one quantization step of the record's
   deltas.
 """
@@ -30,6 +30,7 @@ import json
 import sys
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -20,6 +20,7 @@ exactly and the scales at the reference's rtol 1e-6
 import dataclasses
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

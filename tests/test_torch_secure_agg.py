@@ -13,6 +13,7 @@ equals the plain mean at the reference's own rtol/atol 1e-3
 |corr| under 0.9, the reference's bounds).
 """
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 from _hyp import given, settings, st

@@ -20,6 +20,7 @@ import threading
 from pathlib import Path
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 

@@ -26,7 +26,7 @@ Tolerances, each stated where it is used:
   arithmetic is the same op for op;
 - against the reference's meshless run of the same split (``jax`` on the
   CPU, one device, the same ``microbatches``): the bounds of
-  ``tests/test_torch_lm_train.py``'s rounds, loss rtol 1e-5, params rtol
+  ``tests/test_torch_lm_train_rounds.py``'s rounds, loss rtol 1e-5, params rtol
   1e-4 / atol 1e-5; under a rounding or selection mode (quant8, quant4,
   secure, topk_ef) or adamw at most 1e-4 of the elements may be further
   off, by at most one step (``_hold_reference`` says why);
@@ -48,6 +48,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 
@@ -87,6 +88,8 @@ CASES = {**{m: (m, "sgd", "even", {}) for m in MODES},
          "dense-clip": ("dense", "sgd-clip", "even", {}),  # the clip's norm summed over blocks
          "dense-odd": ("dense", "sgd", "odd", {})}  # N_total odd: the flat dim stays whole
 SHAPES = {(1, 2): sorted(CASES), (2, 2): ["dense", "eq6", "quant8"], (2, 1): []}
+# state_layout="tree" rounds (sgd, the even config) on the meshes of 2 ranks
+TREE_SHAPES = {(1, 2): ["dense", "eq6", "quant8"], (2, 1): ["dense", "eq6", "quant8"]}
 ENGINE = dict(n_clients=C, mode="async", buffer_size=2, staleness_alpha=0.5)
 ENGINES = {"buffered": ("eq6", dict(max_staleness=1)),
            "streaming": ("dense", dict(stream=True, max_staleness=2))}
@@ -142,7 +145,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import async_engine as ae, compression as comp, explorer, packing, rounds
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import convert
-from repro_torch.models.params import flatten_with_paths
+from repro_torch.models.params import flatten_with_paths, map_tree
 from repro_torch.optim import adamw, sgd
 
 with open(out + "/inputs.pkl", "rb") as f:  # written by this test's parent process
@@ -184,6 +187,22 @@ for name in inp["shapes"][(S, M)]:
     made = rounds.make_state(cfg, f, opts[opt], device="cpu", mesh=mesh)
     for k, v in rounds.state_bytes(made).items():
         res[f"{name}/bytes/{k}"] = np.int64(v)
+for name in inp["tree_shapes"].get((S, M), []):
+    # the tree layout: the rank holds its clients' leaves, whole on every model rank
+    cfg, f = cfgs["even"], fed(name, state_layout="tree")
+    agg = rounds.make_aggregator(cfg, f, mesh)
+    rows = packing.packed_pspec(C, "data", mesh)
+    ts = inp["tree_state"]
+    p, o = convert.tree_state_from_reference(ts["params"], ts["opt"], rows=rows)
+    state = {"params": p, "opt": o, "round": 0,
+             "agg": convert.agg_state_from_reference(inp["agg"][(name, "even")],
+                                                     rows=rows if agg.row_state else None)}
+    fr = rounds.build_fed_round(cfg, f, opts["sgd"], mesh)
+    for _ in range(inp["rounds"]):
+        state, m = fr(state, {"tokens": toks}, w)
+    res[f"tree/{name}/params"] = rounds.tree_to_rows(agg.ctx.spec, state["params"], True).numpy()
+    res[f"tree/{name}/loss"] = np.float32(m["loss"])
+    res[f"tree/{name}/block"] = np.array([rows.start, rows.stop, 0, agg.ctx.spec.n_total])
 if (S, M) == (1, 2):
     # the aggregation alone, on one (C, N) input and one state from another
     cfg = cfgs["even"]
@@ -212,6 +231,11 @@ if (S, M) == (1, 2):
 if (S, M) == (2, 1):
     cfg = cfgs["even"]
     own = packing.packed_pspec(C, "data", mesh)
+    # core.fedavg's quant8: one scale per client shard, int8 blocks all-gathered
+    from repro_torch.core import fedavg
+    new, base = (map_tree(lambda x: torch.from_numpy(x[own]), t) for t in inp["fedavg_q8"])
+    for path, leaf in flatten_with_paths(fedavg.aggregate_quant8(new, base, w, mesh, "data")):
+        res[f"fedavg_q8/{path}"] = leaf.numpy()
     # fedsgd: the client axis as data-parallel ranks of one shared copy
     st = inp["fedsgd_state"]
     row, o = convert.fedsgd_state_from_reference(cfg, st["params"], st["opt"])
@@ -278,8 +302,13 @@ def inputs():
                                                      + 1, axis=0)}}
     rng = np.random.default_rng(5)
     x0 = rng.normal(size=params.shape).astype(np.float32)
+    # the sgd state as the reference's tree layout holds it
+    tree_params, _ = convert.tree_state_to_reference(packing.unpack(spec, torch.from_numpy(params), tpl), {})
+    tree_state = {"params": tree_params, "opt": states[("sgd", "even")]["opt"]}
+    noisy = map_tree(lambda x: (x + 0.01 * rng.normal(size=x.shape)).astype(np.float32), tree_params)
     return {"C": C, "rounds": ROUNDS, "flushes": FLUSHES, "weights": WEIGHTS, "modes": MODES,
-            "cases": CASES, "shapes": SHAPES, "cfgs": NARROW,
+            "cases": CASES, "shapes": SHAPES, "cfgs": NARROW, "tree_shapes": TREE_SHAPES,
+            "tree_state": tree_state, "fedavg_q8": (noisy, tree_params),
             "states": states, "agg": agg, "toks": _toks(1), "merged": _merged(_toks(1)),
             "fedsgd_state": {"params": shared, "opt": {"mu": jax.tree.map(np.zeros_like, shared)}},
             "engine": ENGINE, "engines": ENGINES, "engine_states": engine_states,
@@ -408,6 +437,19 @@ def meshless_runs(inputs):
         made = rounds.make_state(cfg, fed, opts[opt], device="cpu")
         res[name] = (state["params"].numpy(), float(m["loss"]), m["client_loss"].numpy(),
                      rounds.state_bytes(made))
+    ts = inputs["tree_state"]
+    for micro, names in ((2, TREE_SHAPES[(1, 2)]), (1, TREE_SHAPES[(2, 1)])):
+        for name in names:  # the tree twins: the (1, 2) mesh's 2 parts, the (2, 1) mesh's one
+            p, o = convert.tree_state_from_reference(ts["params"], ts["opt"])
+            state = {"params": p, "opt": o, "round": 0,
+                     "agg": convert.agg_state_from_reference(inputs["agg"][(name, "even")])}
+            fed = _fed("torch", name, microbatches=micro, state_layout="tree")
+            fr = rounds.build_fed_round(CFGS["even"][1], fed, opts["sgd"])
+            for _ in range(ROUNDS):
+                state, m = fr(state, {"tokens": toks}, torch.tensor(WEIGHTS))
+            spec = rounds.make_aggregator(CFGS["even"][1], fed).ctx.spec
+            res[("tree", micro, name)] = (rounds.tree_to_rows(spec, state["params"], True).numpy(),
+                                          float(m["loss"]))
     st = inputs["fedsgd_state"]
     row, o = convert.fedsgd_state_from_reference(CFGS["even"][1], st["params"], st["opt"])
     state = {"params": row, "opt": o, "agg": {}, "round": 0}
@@ -453,7 +495,7 @@ def _gap(a, b):
 
 
 def _hold_reference(name, got, loss, want, want_loss):
-    """Loss rtol 1e-5; params rtol 1e-4 / atol 1e-5 (``tests/test_torch_lm_train.py``'s
+    """Loss rtol 1e-5; params rtol 1e-4 / atol 1e-5 (``tests/test_torch_lm_train_rounds.py``'s
     rounds). Under a rounding or selection mode or adamw, the packages'
     local training differs by about 1e-7 relative, which flips a rounding,
     a top-k choice or the sign of adamw's step at a near-zero gradient: at
@@ -567,6 +609,42 @@ def test_engine_over_a_sharded_client_axis(kind, ranks, meshless, reference):
         print(f"{kind} engine on 2 x 1: relative max gap {gap:.3e}")
         assert gap < 1e-6
         np.testing.assert_allclose(r[f"{kind}/global"], jg, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,name", [(s, n) for s, names in TREE_SHAPES.items() for n in names])
+def test_tree_round_on_a_mesh_matches_its_meshless_twin(shape, name, ranks, meshless):
+    """The tree layout on (1, 2) (leaves whole on both model ranks, the
+    step's batch split) and on (2, 1) (each rank its 2 clients' leaves)
+    against the port's meshless tree round of the same split."""
+    S, M = shape
+    rs = ranks[shape]
+    got = _assembled(rs, f"tree/{name}", S, M)  # model ranks hold the same bits
+    want, loss = meshless[("tree", 2 if M == 2 else 1, name)]
+    gap = _gap(got, want)
+    print(f"tree {name} on {S} x {M}: relative max gap {gap:.3e} against the meshless twin")
+    assert gap < 1e-6
+    for r in rs:
+        assert abs(float(r[f"tree/{name}/loss"]) - loss) < 1e-6
+
+
+def test_fedavg_quant8_on_two_client_shards(ranks, inputs):
+    """``core.fedavg.aggregate_quant8`` on the (2, 1) mesh: each rank's rows
+    of base + the weighted mean of the deltas, each shard's rows dequantized
+    by the scale of that shard's block (the plain formula, in NumPy here:
+    the same IEEE steps to the int8 values, the mean within 1e-6)."""
+    new, base = inputs["fedavg_q8"]
+    w, k = np.asarray(WEIGHTS, np.float32), C // 2
+    for (path, n), (_, b) in zip(flatten_with_paths(new), flatten_with_paths(base)):
+        delta = n - b
+        d = np.empty_like(delta)
+        for sh in range(2):
+            blk = delta[sh * k: (sh + 1) * k]
+            scale = np.maximum(np.abs(blk).max(), np.float32(1e-12)) / np.float32(127.0)
+            d[sh * k: (sh + 1) * k] = np.clip(np.round(blk / scale), -127, 127) * scale
+        gd = np.tensordot(w, d, axes=1)
+        for r, rank in enumerate(ranks[(2, 1)]):
+            np.testing.assert_allclose(rank[f"fedavg_q8/{path}"], b[r * k: (r + 1) * k] + gd[None],
+                                       rtol=1e-6, atol=1e-7, err_msg=path)
 
 
 @pytest.mark.parametrize("key,match", [

@@ -21,6 +21,7 @@ import json
 import sys
 from pathlib import Path
 
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import numpy as np
 
 import jax

@@ -36,6 +36,7 @@ import time
 from types import SimpleNamespace
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 
 from repro.core.transport import codec as jcodec

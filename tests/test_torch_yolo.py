@@ -11,6 +11,7 @@ exactly.
 import dataclasses
 
 import numpy as np
+import _torch_threads  # noqa: F401 (torch on 2 threads a worker)
 import pytest
 import torch
 
