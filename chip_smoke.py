@@ -3900,6 +3900,9 @@ SHARD_MODES = ["dense", "eq6", "quant8"]
 SHARD_ENGINE = dict(n_clients=4, mode="async", buffer_size=2, staleness_alpha=0.5)
 SHARD_FLUSHES = 2
 SHARD_LM = dict(layers=2, clients=2, batch=2, seq=128, lr=3e-3, topn=2)
+# 18d: mamba2-1.3b at its widths cut to 12 layers, fedsgd sgd 0.05, one
+# step at 2 x 128 (C 2 of 1 x 128, 1 x 128 a model rank), the layer gather
+SHARD_SSM = dict(layers=12, clients=2, batch=1, seq=128)
 SHARD_TIMEOUT_S = 300
 
 
@@ -3958,11 +3961,12 @@ def shard_rounds(cfg, fed, opt, batches, w, dev, mesh) -> dict:
             choices.append(comp.topn_mask(comp.contribution_scores(prev, state["agg"]["prev_sums"]),
                                           fed.topn))
     params = state["params"]
-    if mesh is not None and state["params"].dim() == 2:
-        params = collectives.all_gather(params, mesh, "model", axis=-1)
+    if mesh is not None and params.shape[-1] != rounds.make_aggregator(cfg, fed).ctx.spec.n_total:
+        params = collectives.all_gather(params, mesh, "model", axis=-1)  # the rank's column block
     return {"params": params, "loss": float(met["loss"]), "ms": ms, "choices": choices,
             "k1": pack.packed_bucket_reduce.launches, "k5a": pack.quantize_rows.launches,
-            "coll_s": collectives.stats["seconds"], "coll_calls": collectives.stats["calls"]}
+            "coll_s": collectives.stats["seconds"], "coll_calls": collectives.stats["calls"],
+            "coll_bytes": collectives.stats["bytes"]}
 
 
 def meshless_against(tag: str, got: dict, cfg, fed, opt, batches, w, dev, card: str,
@@ -4059,19 +4063,23 @@ def phase18a(rank: int, dev, card: str) -> None:
 
 def phase18b(rank: int, dev, card: str) -> None:
     """qwen3-1.7b at its widths cut to 2 layers, one eq6 adamw round (C 2,
-    one step at 2 x 128, 1 x 128 a model rank) on a (1, 2) mesh: each
-    rank's state bytes against the meshless state's and the dry-run's
-    per-device bytes of the plan, the peak, the round's ms, the host
-    collectives' seconds; rank 0 holds the loss against the meshless run's."""
+    one step at 2 x 128, 1 x 128 a model rank) on a (1, 2) mesh, attention
+    through K9 as the launcher sets it: each rank's state bytes against the
+    meshless state's and the dry-run's per-device bytes of the plan, the
+    peak, the round's ms, the host collectives' seconds, the layer gather's
+    counters and high-water, K9's launches (2 a layer a step); rank 0 holds
+    the loss against the meshless run's."""
     from repro_torch.configs import get_arch
-    from repro_torch.core import collectives, rounds
+    from repro_torch.core import collectives, layer_gather, rounds
     from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels import pack
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw
 
     lm = SHARD_LM
-    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=lm["layers"])
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=lm["layers"], attention_impl="kernel")
     fed = shard_fed("eq6", n_clients=lm["clients"], topn=lm["topn"])
     opt = adamw(lm["lr"])
     mesh = make_host_mesh(1, 2, "cuda")
@@ -4091,16 +4099,26 @@ def phase18b(rank: int, dev, card: str) -> None:
           f"18b rank {rank}: state bytes {mine} against the meshless {whole}")
     fr = rounds.build_fed_round(cfg, fed, opt, mesh)
     collectives.reset_stats()
+    layer_gather.reset_stats()
+    flash_attention.launches = pack.packed_bucket_reduce.launches = 0
     (state, met), ms = synced_ms(lambda: fr(state, batch, w))
     loss = float(met["loss"])
     peak = torch.cuda.max_memory_allocated()
+    g = layer_gather.stats
     say(f"phase18b qwen3-1.7b (2 layers, N {n}) eq6 adamw (1, 2) rank {rank}: state "
         f"{mine['clients'] + mine['server']} B of the flat dim (meshless {whole['clients'] + whole['server']}"
         f" B, / 2 exactly) plus {mine['other']} B whole (per-bucket sums, step counts); the "
         f"dry-run's per-device bytes of the plan {plan} B; peak {peak / 2 ** 30:.3f} GiB; round "
         f"{ms:.1f} ms, host collectives {collectives.stats['calls']} calls "
         f"{collectives.stats['bytes'] / 1e9:.3f} GB {collectives.stats['seconds']:.3f} s (gloo "
-        f"through pinned host memory, not NVLink); loss {loss!r}", card)
+        f"through pinned host memory, not NVLink); the gather {g['units']} units "
+        f"{g['bytes'] / 1e9:.3f} GB, high-water {g['high'] / 1e6:.1f} MB (the row {n * 4 / 1e6:.1f} "
+        f"MB); K9 {flash_attention.launches} K1 {pack.packed_bucket_reduce.launches} launches; "
+        f"loss {loss!r}", card)
+    check(0 < g["high"] < n * 4, f"18b rank {rank}: the gather's high-water {g['high']} B")
+    check(flash_attention.launches == 2 * cfg.n_layers * lm["clients"],
+          f"18b rank {rank}: {flash_attention.launches} K9 launches in {lm['clients']} local steps "
+          f"of {cfg.n_layers} checkpointed layers")
     check(np.isfinite(loss), f"18b rank {rank}: loss {loss}")
     del state, met
     torch.cuda.empty_cache()
@@ -4114,6 +4132,104 @@ def phase18b(rank: int, dev, card: str) -> None:
             f"1e-5: {abs(loss - want) / abs(want):.3e})", card)
         del state, met
         torch.cuda.empty_cache()
+
+
+def gather_arithmetic(arch: str) -> str:
+    """The layer gather's sizes for ``arch`` at its published widths, from
+    the pack spec alone (no tensor): N, the rest unit, the largest layer
+    and a rank's f32 transient of 2 x (rest + one layer)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layer_gather, packing, rounds
+
+    cfg = get_arch(arch)
+    tpl = rounds.make_template(cfg)
+    spec = packing.build_pack_spec(cfg, tpl)
+    plan = layer_gather.build_plan(spec, tpl, 1)  # the units' sizes, whatever the mesh
+    layer = max(u.size for u in plan.layers.values())
+    return (f"phase18d the gather at {arch}'s widths (arithmetic): N {spec.n_total}, rest unit "
+            f"{plan.rest.size} ({plan.rest.size * 4 / 1e9:.2f} GB f32), largest layer {layer} "
+            f"({layer * 4 / 1e9:.2f} GB), 2 x (rest + layer) {2 * (plan.rest.size + layer) * 4 / 1e9:.2f}"
+            f" GB a rank, the whole-row step's row and gradient {2 * spec.n_total * 4 / 1e9:.1f} GB")
+
+
+def phase18d(rank: int, dev, card: str) -> None:
+    """mamba2-1.3b at its widths cut to 12 layers, one fedsgd round (sgd
+    0.05, C 2 merged into one step at 2 x 128, 1 x 128 a model rank) on a
+    (1, 2) mesh, where the local step gathers the row layer by layer
+    (``core.layer_gather``): each rank's state exactly half the meshless
+    state, the gather's high-water within 2 x (rest + one layer), K10 2
+    launches a layer (forward and recompute), the peak beside the
+    whole-row step's arithmetic, the round's ms and the host collectives;
+    rank 0 holds the loss and params against its meshless twin and the
+    plain round (phase 10c's bounds)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives, layer_gather, packing, rounds
+    from repro_torch.data.pipeline import fed_batches
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import sgd
+
+    lm = SHARD_SSM
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), n_layers=lm["layers"], ssm_impl="kernel")
+    fed = shard_fed("fedsgd", n_clients=lm["clients"])
+    opt = sgd(SHARD_LR)
+    mesh = make_host_mesh(1, 2, "cuda")
+    batch = rounds.merge_clients(rounds.to_device(
+        next(fed_batches(cfg, fed, batch=lm["batch"], seq=lm["seq"])), dev))
+    w = rounds.uniform_weights(lm["clients"]).to(dev)
+    tpl = rounds.make_template(cfg)
+    spec = packing.build_pack_spec(cfg, tpl)
+    n = spec.n_total
+    plan = layer_gather.build_plan(spec, tpl, 2)
+    layer = max(u.size for u in plan.layers.values())
+    bound = 2 * (plan.rest.size + layer) * 4
+    whole = rounds.state_bytes(rounds.state_template(cfg, fed, opt, torch.float32))
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()  # what earlier phases keep (K1's cached bucket ids)
+    state = rounds.make_state(cfg, fed, opt, rounds.seed_generator(cfg, 0, dev), dev, mesh=mesh)
+    mine = rounds.state_bytes(state)
+    check(mine["server"] * 2 == whole["server"] and mine["clients"] == whole["clients"] == 0
+          and mine["other"] == whole["other"],
+          f"18d rank {rank}: state bytes {mine} against the meshless {whole}")
+    peaks = {}
+
+    def update(*args):  # the peak through the backward, then the optimizer's own
+        peaks["backward"] = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        opt.update(*args)
+        peaks["update"] = torch.cuda.max_memory_allocated() - before
+
+    fr = rounds.build_fed_round(cfg, fed, dataclasses.replace(opt, update=update), mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the round's peak, the state in it
+    collectives.reset_stats()
+    layer_gather.reset_stats()
+    ssd_chunk_scan.launches = 0
+    (state, met), ms = synced_ms(lambda: fr(state, batch, w))
+    peak = max(peaks.values())
+    g, c, k10 = dict(layer_gather.stats), dict(collectives.stats), ssd_chunk_scan.launches
+    got = {"params": collectives.all_gather(state["params"], mesh, "model"),
+           "loss": float(met["loss"]), "choices": []}
+    del state, met
+    check(0 < g["high"] <= bound, f"18d rank {rank}: the gather's high-water {g['high']} B > {bound} B")
+    check(k10 == 2 * cfg.n_layers, f"18d rank {rank}: {k10} K10 launches in one step of "
+          f"{cfg.n_layers} checkpointed layers")
+    check(np.isfinite(got["loss"]), f"18d rank {rank}: loss {got['loss']}")
+    say(f"phase18d mamba2-1.3b ({cfg.n_layers} layers, N {n}: rest unit {plan.rest.size}, one "
+        f"layer {layer}) fedsgd sgd (1, 2) rank {rank}: state {mine['server']} B (meshless "
+        f"{whole['server']} B, / 2 exactly); the gather {g['units']} units {g['bytes']} B, "
+        f"high-water {g['high']} B (bound 2 x (rest + one layer) {bound} B; the whole-row step's "
+        f"row and gradient {2 * n * 4} B); peak {peak / 2 ** 30:.3f} GiB above the "
+        f"{before / 2 ** 30:.3f} GiB earlier phases hold (backward {peaks['backward'] / 2 ** 30:.3f}, "
+        f"update {peaks['update'] / 2 ** 30:.3f}; the whole-row step's state + row + gradient "
+        f"{(mine['server'] + 2 * n * 4) / 2 ** 30:.3f} GiB before its temporaries); K10 {k10} launches; round {ms:.1f} ms, host collectives {c['calls']} "
+        f"calls {c['bytes']} B {c['seconds']:.3f} s; loss {got['loss']!r}", card)
+    if rank == 0:
+        meshless_against("18d", got, cfg, fed, opt, [batch], w, dev, card)
+        for arch in ("gemma3-27b", "grok-1-314b"):
+            say(gather_arithmetic(arch), card)
+    del got
+    torch.cuda.empty_cache()
 
 
 def phase18_rank(rank: int, tmp: str, card: str) -> None:
@@ -4136,6 +4252,7 @@ def phase18_rank(rank: int, tmp: str, card: str) -> None:
         f"{time.perf_counter() - t0:.2f} s", card)
     phase18a(rank, dev, card)
     phase18b(rank, dev, card)
+    phase18d(rank, dev, card)
     dist.barrier()
     dist.destroy_process_group()
 

@@ -7,9 +7,13 @@ phase 18 alone.
 Builds the kernel library, then runs phase 18: two rank processes sharing
 the card over a gloo group (18a fedyolov3 at full width on (1, 2) and
 (2, 1) meshes against rank 0's meshless runs; 18b qwen3-1.7b at its widths
-cut to 2 layers on a (1, 2) mesh, each rank's state bytes, peak, round ms
-and host collective seconds), then the launcher's 1 x 1 NCCL mesh in this
-process (18c). Exits non-zero without a card or on any disagreement.
+cut to 2 layers on a (1, 2) mesh, each rank's state bytes, peak, round ms,
+host collective seconds and layer-gather counters; 18d mamba2-1.3b at its
+widths cut to 12 layers, one fedsgd step on (1, 2) through the layer
+gather: state exactly half, the gather's high-water within 2 x (rest + one
+layer), K10's launches, the peak, rank 0's meshless checks), then the
+launcher's 1 x 1 NCCL mesh in this process (18c). Exits non-zero without a
+card or on any disagreement.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The collectives of the sharded round, each over one named dim of a
 ``torch.distributed`` ``DeviceMesh``: :func:`all_gather_into_tensor`,
-:func:`reduce_scatter_tensor` (a sum), :func:`all_reduce` (a sum) and
+:func:`all_reduce` (a sum), :func:`reduce` (a sum to one rank) and
 :func:`broadcast`. No counterpart in the reference, where GSPMD places
 these from sharding annotations.
 
@@ -11,12 +11,14 @@ The group's backend for the tensor's device type picks the path
 - gloo with CPU tensors: directly;
 - gloo with CUDA tensors: the operands go through a pinned host buffer this
   module keeps and reuses, one copy to the host and one back, with the
-  collective between them on the host. Gloo takes CUDA tensors only for
+  collective between them on the host (a broadcast's source and a
+  reduce's every rank copy to the host; a broadcast's receivers and a
+  reduce's destination copy back). Gloo takes CUDA tensors only for
   broadcast and all-reduce, and NCCL refuses two ranks on one device, so
   two processes sharing one card run over gloo this way.
 
-A one-rank group (and ``mesh=None``) runs no collective: a gather or a
-scatter is a copy, an all-reduce and a broadcast the identity.
+A one-rank group (and ``mesh=None``) runs no collective: a gather is a
+copy, an all-reduce, a reduce and a broadcast the identity.
 
 :data:`stats` counts the calls that reached a group of more than one rank,
 their bytes and their wall seconds (staging copies included); callers
@@ -108,19 +110,6 @@ def all_gather_into_tensor(out: torch.Tensor, x: torch.Tensor, mesh, dim: str) -
     return out
 
 
-def reduce_scatter_tensor(out: torch.Tensor, x: torch.Tensor, mesh, dim: str) -> torch.Tensor:
-    """The sum over ``dim`` of every rank's ``x`` (S k, ...): block ``j``
-    (k, ...) into ``out`` on the rank at coordinate ``j``."""
-    import torch.distributed as dist
-
-    if size(mesh, dim) == 1:
-        out.view(-1).copy_(x.reshape(-1))
-        return out
-    _run(lambda o, i, group: dist.reduce_scatter_tensor(o, i, group=group), mesh, dim,
-         (out.view(-1), x.contiguous().view(-1)), reads=(1,), writes=(0,))
-    return out
-
-
 def all_reduce(x: torch.Tensor, mesh, dim: str) -> torch.Tensor:
     """``x`` summed over ``dim`` in place, the same bits on every rank."""
     import torch.distributed as dist
@@ -140,8 +129,23 @@ def broadcast(x: torch.Tensor, mesh, dim: str, src: int = 0) -> torch.Tensor:
     if size(mesh, dim) == 1:
         return x
     root = dist.get_global_rank(mesh.get_group(dim), src)
-    _run(lambda t, group: dist.broadcast(t, src=root, group=group), mesh, dim, (x,), reads=(0,),
-         writes=(0,))
+    mine = mesh.get_local_rank(dim) == src
+    _run(lambda t, group: dist.broadcast(t, src=root, group=group), mesh, dim, (x,),
+         reads=(0,) if mine else (), writes=() if mine else (0,))
+    return x
+
+
+def reduce(x: torch.Tensor, mesh, dim: str, dst: int = 0) -> torch.Tensor:
+    """``x`` summed over ``dim``, in place on the rank at coordinate ``dst``
+    (the other ranks' ``x`` is undefined after)."""
+    import torch.distributed as dist
+
+    if size(mesh, dim) == 1:
+        return x
+    root = dist.get_global_rank(mesh.get_group(dim), dst)
+    mine = mesh.get_local_rank(dim) == dst
+    _run(lambda t, group: dist.reduce(t, dst=root, group=group), mesh, dim, (x,), reads=(0,),
+         writes=(0,) if mine else ())
     return x
 
 

@@ -48,12 +48,13 @@ one all-gather, runs unchanged, and the rank keeps its rows of the dispatch
 The mesh's ``"model"`` dim, where its M ranks divide N_total, splits the
 flat dim too (``packing.packed_cols``): a rank holds the (C/S, N_total/M)
 block of the params, of every moment and of every aggregator buffer along
-the flat dim, FSDP-style. Each local step gathers the client's whole row,
-runs on the model rank's 1/M of the step's batch and reduce-scatters the
-gradient to the rank's block, which the optimizer steps
-(:func:`local_training`). A column-local aggregator aggregates the block;
-the others get whole rows, gathered over the model axis, and the rank
-keeps its block (:func:`aggregate_sharded`). Where M does not divide
+the flat dim, FSDP-style. Each local step gathers the client's row one
+layer at a time (``core.layer_gather``), runs on the model rank's 1/M of
+the step's batch and sums each layer's gradient into the rank's block
+gradient, which the optimizer steps (:func:`local_training`). A
+column-local aggregator aggregates the block; the others get whole rows,
+gathered over the model axis, and the rank keeps its block
+(:func:`aggregate_sharded`). Where M does not divide
 N_total, the flat dim stays whole on every model rank and only the batch
 splits. fedsgd treats the client axis as data-parallel ranks too: each
 takes its clients' part of the merged batch and the gradient is summed
@@ -89,7 +90,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import aggregators, collectives, packing
+from repro_torch.core import aggregators, collectives, layer_gather, packing
 from repro_torch.models import params as mp
 from repro_torch.models import transformer, yolov3
 from repro_torch.optim import Optimizer
@@ -149,10 +150,12 @@ class FedConfig:
 
 
 def loss_for(cfg) -> Callable:
-    """``(params, batch) -> (loss, metrics)`` for the config's family."""
+    """``(params, batch, fetch=None) -> (loss, metrics)`` for the config's
+    family; ``fetch`` gives an LM's layers from a gather
+    (``transformer.trunk``); fedyolov3 has no layer stack."""
     if cfg.family == "yolo":
-        return lambda params, batch: yolov3.yolo_loss(params, batch, cfg)
-    return lambda params, batch: transformer.loss_fn(cfg, params, batch)
+        return lambda params, batch, fetch=None: yolov3.yolo_loss(params, batch, cfg)
+    return lambda params, batch, fetch=None: transformer.loss_fn(cfg, params, batch, fetch)
 
 
 def make_template(cfg) -> PyTree:
@@ -487,17 +490,25 @@ def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
     the S of the client axis as well: rank (s, j) takes part ``s M + j``).
     Where the model axis splits the flat dim (:func:`state_cols`) the
     row and its optimizer rows are the rank's column block, and each step
-    is FSDP over the flat dim: the client's whole row is all-gathered into
-    one reused (N_total,) buffer, ``grads_of`` runs on the rank's part of
-    the batch, the packed gradient is reduce-scattered (a sum) to the
-    block, divided by the number of parts (a mean), and the optimizer steps
-    the block (the clip's norm summed over the model axis). Where the flat
-    dim stays whole, the gradient is all-reduced instead and every model
-    rank steps the whole row alike. The loss is all-reduced to the mean of
-    the parts. Cost: one full row and one full gradient live per rank
-    during a step, beside the block state; the collectives run one after
-    another, not under the compute. The batch (with ``microbatches`` m > 1:
-    the m microbatches) must split into P parts, else ``ValueError``. A
+    is FSDP over the flat dim, layer by layer (``core.layer_gather``): the
+    forward and the checkpointed recompute gather the row one unit at a
+    time (the leaves outside the layer stacks, then each layer) on the
+    rank's part of the batch, and as the backward finishes a unit its
+    gradient is summed over the model ranks into the rank's preallocated
+    block gradient; that is divided by the number of parts (a mean), and
+    the optimizer steps the block (the clip's norm summed over the model
+    axis). With ``shared`` the block gradient is then summed over the
+    client axis. Where the flat dim stays whole, the gradient is
+    all-reduced instead and every model rank steps the whole row alike.
+    The loss is all-reduced to the mean of the parts. Cost: beside its
+    block state and block gradient, a rank holds the leaves outside the
+    stacks and one layer (in a gemma3 or zamba2 group, one layer at a time
+    too), each with its gradient, never a whole row or gradient; each layer
+    is gathered twice a pass (three times within a group) and every unit's
+    gradient reduced once, one after another, not under the compute. The
+    batch (with ``microbatches`` m > 1: the m microbatches) must split into
+    P parts, else ``ValueError``. With m > P a rank's parts reduce one by
+    one, so their sums come in another order than the meshless twin's. A
     one-rank mesh takes the same code, its collectives the identity, and
     equals the meshless trainer bit for bit."""
     tpl = make_template(cfg)
@@ -511,35 +522,54 @@ def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
     P = S * M
     part = ((mesh.get_local_rank(fed.client_axis) if S > 1 else 0) * M
             + (mesh.get_local_rank("model") if M > 1 else 0))
-    whole_rows: dict = {}  # the reused (N_total,) row buffer, per device and dtype
-
-    def whole(row: torch.Tensor) -> torch.Tensor:
-        if not blocked:
-            return row
-        buf = whole_rows.get((row.device, row.dtype))
-        if buf is None:
-            buf = whole_rows[(row.device, row.dtype)] = torch.empty(N, dtype=row.dtype,
-                                                                   device=row.device)
-        return collectives.all_gather_into_tensor(buf, row, mesh, "model")
+    gather = layer_gather.Gather(layer_gather.build_plan(spec, tpl, M), mesh) if blocked else None
+    block_grads: dict = {}  # the reused block gradient, per device and dtype
 
     def over_parts(x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the P ranks, in place; a gradient lands as
-        the rank's block where the flat dim is split."""
-        if blocked and x.dim():
-            x = collectives.reduce_scatter_tensor(
-                torch.empty(cols.stop - cols.start, dtype=x.dtype, device=x.device), x, mesh,
-                "model")
-        else:
-            collectives.all_reduce(x, mesh, "model")
+        """The sum of ``x`` over the P ranks, in place."""
+        collectives.all_reduce(x, mesh, "model")
         if S > 1:
             collectives.all_reduce(x, mesh, fed.client_axis)
         return x
 
+    def run_parts(row: torch.Tensor, step_batch: PyTree, parts: range, T: int, b: int):
+        """(summed loss, summed gradient) of this rank's ``parts`` of the
+        step's batch: over views of a detached alias of the whole row, the
+        gradient as one (N_total,) tensor in the packed layout; or, where
+        the flat dim is split, over the gather, the gradient summed over
+        the model ranks into the rank's block gradient."""
+        cut = step_batch if T == 1 else mp.map_tree(
+            lambda x: x.reshape((T, b // T) + x.shape[1:]), step_batch)
+        batches = [step_batch if T == 1 else mp.map_tree(lambda x: x[i], cut) for i in parts]
+        tot = g_sum = None
+        if blocked:
+            key = (row.device, row.dtype)
+            if key not in block_grads:
+                block_grads[key] = torch.empty_like(row)
+            g_sum = block_grads[key]
+            for n, part_batch in enumerate(batches):
+                anchor = gather.begin(row, g_sum, accumulate=n > 0)
+                loss, _ = loss_fn(gather.rest(), part_batch, gather)
+                torch.autograd.grad(loss, anchor, allow_unused=True)
+                gather.finish()
+                tot = loss.detach() if tot is None else tot + loss.detach()
+            return tot, g_sum
+        flat = row.detach().requires_grad_(True)
+        views = packing.unpack_views(spec, flat, tpl)
+        for part_batch in batches:
+            loss, _ = loss_fn(views, part_batch)
+            (g,) = torch.autograd.grad(loss, flat)
+            if g_sum is None:  # the first part's gradient is the sum's buffer
+                tot, g_sum = loss.detach(), g
+            else:
+                tot = tot + loss.detach()
+                g_sum.add_(g)
+            del g
+        return tot, over_parts(g_sum)
+
     def grads_of(row: torch.Tensor, step_batch: PyTree):
         """(loss, packed gradient) of one local step at ``row`` (the rank's
-        block of it where the flat dim is split): the loss runs over views
-        of a detached alias of the whole row, so the gradient comes back as
-        one (N_total,) tensor in the packed layout. The step's batch splits
+        block of it where the flat dim is split). The step's batch splits
         into T parts, the m microbatches or else the P ranks' parts; the
         rank runs its T / P of them in order, their gradients summed, the
         sum taken over the P ranks (to the rank's block) and divided by T
@@ -554,24 +584,15 @@ def local_training(cfg, fed: FedConfig, optimizer: Optimizer, mesh=None, *,
             raise ValueError(f"a local batch of {b}" + (f" in {m} microbatches" if m > 1 else "")
                              + f" does not split over the {P} data-parallel ranks of the mesh "
                              f"({M} on 'model', {S} on {fed.client_axis!r})")
-        flat = whole(row).detach().requires_grad_(True)
-        views = packing.unpack_views(spec, flat, tpl)
-        if T > 1:
-            cut = mp.map_tree(lambda x: x.reshape((T, b // T) + x.shape[1:]), step_batch)
-        tot = g_sum = None
-        for i in range(part * (T // P), (part + 1) * (T // P)):
-            loss, _ = loss_fn(views, step_batch if T == 1 else mp.map_tree(lambda x: x[i], cut))
-            (g,) = torch.autograd.grad(loss, flat)
-            if g_sum is None:  # the first part's gradient is the sum's buffer
-                tot, g_sum = loss.detach(), g
-            else:
-                tot = tot + loss.detach()
-                g_sum.add_(g)
-            del g
-        del views, flat
-        tot, g_sum = over_parts(tot), over_parts(g_sum)
+        tot, g_sum = run_parts(row, step_batch, range(part * (T // P), (part + 1) * (T // P)), T, b)
+        tot = over_parts(tot)
+        if blocked and S > 1:  # the block gradient, summed over the model ranks already
+            collectives.all_reduce(g_sum, mesh, fed.client_axis)
         if T == 1:
             return tot, g_sum
+        if blocked:  # the reused block gradient, divided in place (``exact_div``'s IEEE division)
+            return packing.exact_div(tot, float(T)), g_sum.div_(
+                torch.full((), float(T), dtype=g_sum.dtype, device=g_sum.device))
         return packing.exact_div(tot, float(T)), packing.exact_div(g_sum, float(T))
 
     sum_blocks = (lambda x: collectives.all_reduce(x, mesh, "model")) if blocked else None
@@ -719,7 +740,9 @@ def aggregate_sharded(agg: aggregators.Aggregator, packed: torch.Tensor, weights
     ``"model"``); over a sharded client axis, one that does not move its own
     rows gets all C rows (the buffer and its client-stacked state leaves
     all-gathered over the client axis). The rank keeps its block of what
-    comes out."""
+    comes out. So quant8, quant4, secure and topk_ef, which are not
+    column-local, still hold whole (C, N_total) rows on every model rank
+    while they aggregate, where the local step holds one layer."""
     ctx = agg.ctx
     fed, mesh = ctx.fed, ctx.mesh
     wide = ctx.cols is not None and not agg.local_cols

@@ -198,45 +198,61 @@ def remat(fn, *args):
     return fn(*args)
 
 
-def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor):
+def trunk(cfg: ArchConfig, params: PyTree, x: torch.Tensor, fetch=None):
     """Hidden states (B, S, D) -> (B, S, D) after all layers and the final
     norm. Returns (hidden, aux): MoE's load-balance loss summed over the
     layers in their order (0 for the other families). Each unit is
     checkpointed under grad (:func:`remat`); the stacks are unbound outside
-    the checkpoints (:func:`unstack`)."""
+    the checkpoints (:func:`unstack`).
+
+    ``fetch`` (a ``core.layer_gather.Gather``): ``params`` holds only the
+    leaves outside the stacks, and each layer comes from ``fetch`` as a
+    thunk that gathers it, called inside the layer's checkpoint, so the
+    checkpoint keeps no gathered layer and the recompute gathers again.
+    Within a gemma3 or zamba2 group each layer is then a checkpoint of its
+    own too, so that the group's recompute holds one gathered layer at a
+    time; such a layer runs its forward (and K9 or K10) up to three times
+    a step."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = constrain(x)
+    if fetch is None:  # views of the materialized stacks
+        has, take, inner = params.__contains__, (lambda q: q), (lambda fn, *args: fn(*args))
+
+        def stack(key, levels=1):
+            return unstack(params[key], levels)
+    else:  # one gathered layer at a time
+        stack, has, take, inner = fetch.entries, fetch.__contains__, (lambda q: q()), remat
 
     def layer(h, a, q, window):
-        h, b = dense_block(cfg, q, h, window)
+        h, b = dense_block(cfg, take(q), h, window)
         return h, a + b
 
     def gemma_group(h, a, layers):
         for i, q in enumerate(layers):
-            h, a = layer(h, a, q, layer_window(cfg, i))
+            h, a = inner(layer, h, a, q, layer_window(cfg, i))
         return h, a
 
     def hybrid_group(h, layers, shared):
         for q in layers:
-            h = ssm_block(cfg, q, h)
+            h = inner(lambda h_, q_: ssm_block(cfg, take(q_), h_), h, q)
         return dense_block(cfg, shared, h, 0)[0]
 
     if is_stacked_dense(cfg):
-        for p in unstack(params["layers"]):
+        for p in stack("layers"):
             x, aux = remat(layer, x, aux, p, cfg.window)
             x = constrain(x)
     elif cfg.local_global_period:  # gemma3: period groups, then the tail
-        for g in unstack(params["groups"], 2) if "groups" in params else ():
+        for g in stack("groups", 2) if has("groups") else ():
             x, aux = remat(gemma_group, x, aux, g)
             x = constrain(x)
-        for p in unstack(params["tail"]) if "tail" in params else ():
+        for p in stack("tail") if has("tail") else ():
             x, aux = remat(layer, x, aux, p, cfg.window)
             x = constrain(x)
     elif cfg.family == "ssm":
-        for p in unstack(params["layers"]):
-            x = constrain(remat(lambda h, q: ssm_block(cfg, q, h), x, p))
+        for p in stack("layers"):
+            x = constrain(remat(lambda h, q: ssm_block(cfg, take(q), h), x, p))
     elif cfg.family == "hybrid":  # each Mamba2 group, then the one shared block
-        for g in unstack(params["mamba_groups"], 2):
+        for g in stack("mamba_groups", 2):
             x = constrain(remat(hybrid_group, x, g, params["shared"]))
     else:
         raise ValueError(f"unsupported family {cfg.family}")
@@ -296,15 +312,16 @@ def _next_token_ce(cfg, params, hidden: torch.Tensor, tokens: torch.Tensor) -> t
     return chunked_ce(cfg, params, hidden, labels, mask)
 
 
-def loss_fn(cfg: ArchConfig, params: PyTree, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(cfg: ArchConfig, params: PyTree, batch: dict, fetch=None) -> tuple[torch.Tensor, dict]:
     """The training objective per modality -> (loss, {"ce", "aux"}), loss =
     ce + ``router_aux_weight`` * aux. Text: next-token CE over ``tokens``
     (B, S); audio (hubert's masked cluster prediction): CE over ``labels``
     (B, S) at the frames where ``mask`` (B, S) is set, from ``frames`` (B,
     S, D); vlm: next-token CE over the text positions, after the
-    ``images`` (B, n_img, D)."""
+    ``images`` (B, n_img, D). ``fetch``: the layers come from a gather
+    (:func:`trunk`)."""
     x = embed_inputs(cfg, params, batch)
-    hidden, aux = trunk(cfg, params, x)
+    hidden, aux = trunk(cfg, params, x, fetch)
     if cfg.modality == "audio":
         ce = chunked_ce(cfg, params, hidden, batch["labels"], batch["mask"])
     elif cfg.modality == "vlm":
